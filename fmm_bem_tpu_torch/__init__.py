@@ -7,10 +7,11 @@ the reference package.
 
 - host side (numpy + the native C++ helper): Morton octree, dual-tree
   traversal, M2L classes/families, BEM near-field assembly;
-- device side (torch tensors): the slot-space FMM matvec, whose cached
-  near-field product runs as a hand-written CUDA kernel
-  (``csrc/near_panel.cu``) on CUDA tensors and as its plain PyTorch
-  version on CPU tensors;
+- device side (torch tensors): the slot-space FMM matvec, whose near
+  field runs as a hand-written CUDA kernel on CUDA tensors and as its
+  plain PyTorch version on CPU tensors: the cached BEM panel product
+  (``csrc/near_panel.cu``), the on-the-fly BEM quadrature
+  (``csrc/otf_tile.cu``) or the point-Laplace P2P (``csrc/p2p_tile.cu``);
 - GMRES / FGMRES with per-iteration relaxation of the multipole order.
 
 Every entry point takes an explicit ``device`` (default ``"cuda"``; the

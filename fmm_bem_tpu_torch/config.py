@@ -94,11 +94,12 @@ class FMMConfig:
     #: regular K-point quadrature
     #: inside the matvec (the reference's plain lazy evaluator,
     #: EvalInteractionLazy.hpp:239-252) and caches only the O(N)
-    #: near-singular corrections as deltas (not ported yet: the plan
-    #: raises NotImplementedError for it)
+    #: near-singular corrections as deltas
     near_mode: str = "cached"
-    #: pairs per on-the-fly near chunk (bounds the transient geometry
-    #: bytes: ~chunk * KT*KS*K * 16 B)
+    #: pairs per on-the-fly near chunk of the reference's batched
+    #: evaluation; kept so configurations carry across, and without
+    #: effect here: the leaf-tile kernel walks a row pointer per target
+    #: leaf and needs no chunking
     near_otf_chunk: int = 1024
     #: near-field-only evaluation (no far field) — the preconditioner
     #: operator mode (ref FMMOptions local_evaluation + EvalLocal/

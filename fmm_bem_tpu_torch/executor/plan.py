@@ -15,12 +15,17 @@ ops on the plan's device:
     L2L   octant-class matmuls per level, top-down
     L2P   slot-ordered linear table contracted with the leaf locals
     M2P   fallback for level-skewed pairs
-    near  cached leaf-panel store (ops/near_panel.py: the hand-written
-          CUDA kernel on the GPU, its plain version on the CPU)
+    near  BEM kernels: the cached leaf-panel store (ops/near_panel.py)
+          or, with ``near_mode="otf"``, the regular quadrature
+          recomputed per matvec (ops/otf_tile.py) plus a small cached
+          store of near-singular correction deltas; point kernels: the
+          direct leaf-pair P2P (ops/p2p_tile.py).  Each of the three is
+          a hand-written CUDA kernel on the GPU and its plain version
+          on the CPU.
 
-This slice covers the single-tree, cached-near-field BEM case in the
-SLOT layout: charges and results live in padded leaf tiles end to end.
-What it does not cover raises ``NotImplementedError`` at plan build.
+The port covers the single-tree FMM in the SLOT layout: charges and
+results live in padded leaf tiles end to end.  What it does not cover
+raises ``NotImplementedError`` at plan build.
 
 The relaxation hook (``K.set_p(p)`` in the reference, GMRES.hpp:195-196)
 is an argument: every degree-ordered term dimension is prefix-sliced to
@@ -46,7 +51,18 @@ from fmm_bem_tpu_torch.ops.bucket_sum import bucket_sum_apply, build_bucket_sum
 from fmm_bem_tpu_torch.ops.near_panel import (
     build_near_panels,
     build_near_panels_on_device,
+    chunk_row_ptr,
     panel_matvec,
+)
+from fmm_bem_tpu_torch.ops.otf_tile import (
+    otf_leaf_tiles,
+    pack_otf_src,
+    pack_otf_tgt,
+)
+from fmm_bem_tpu_torch.ops.p2p_tile import (
+    p2p_leaf_tiles,
+    pack_xyzq,
+    sorted_pair_rows,
 )
 from fmm_bem_tpu_torch.tree.octree import Tree, build_tree
 from fmm_bem_tpu_torch.traversal.lists import (
@@ -54,6 +70,11 @@ from fmm_bem_tpu_torch.traversal.lists import (
     build_interaction_lists,
     expand_to_leaves,
 )
+
+
+#: correction-window store budget: beyond it the OTF mode keeps
+#: padded-row entry lists instead (see FmmPlan._build_near_otf)
+_OTF_WINDOW_LIMIT = 1 << 30
 
 
 def apply_flat_trans(rows, mat, ncomp):
@@ -308,34 +329,37 @@ def _check_supported(kernel, config, target_fields):
         no("target_fields (dual-tree evaluation)")
     if config.evaluator != Evaluator.FMM:
         no("Evaluator.TREECODE")
-    if config.near_mode != "cached":
-        no(f"near_mode={config.near_mode!r} (on-the-fly near field)")
+    if config.near_mode not in ("cached", "otf"):
+        raise ValueError(
+            f"FMMConfig.near_mode={config.near_mode!r}: expected 'cached' "
+            "or 'otf'"
+        )
     if config.local_evaluation or config.block_diagonal:
         no("local_evaluation / block_diagonal (near-field-only operators)")
-    if not getattr(kernel, "near_sparse", False):
-        no("a kernel without near_sparse (point-kernel P2P)")
-    if not config.near_panel:
+    sparse = getattr(kernel, "near_sparse", False)
+    if sparse and not config.near_panel:
         no("near_panel=False (COO near-field replay)")
-    if getattr(kernel, "charge_dim", 1) != 1 or getattr(
-        kernel, "result_dim", 1
-    ) != 1:
-        no("a vector-valued kernel (charge_dim / result_dim > 1)")
-    if not callable(getattr(kernel, "l2p_table", None)) or not getattr(
-        kernel, "linear_p2m", True
+    if getattr(kernel, "charge_dim", 1) != 1 or (
+        sparse and getattr(kernel, "result_dim", 1) != 1
     ):
-        no("a kernel without linear P2M / L2P tables")
+        no("a vector-valued BEM kernel (charge_dim > 1, or result_dim > 1 "
+           "with near_sparse)")
+    if not getattr(kernel, "linear_p2m", True):
+        no("a kernel without a linear P2M table")
 
 
 class FmmPlan:
-    """FMM matvec plan for a BEM panel kernel (single tree, cached near
-    field, slot layout).
+    """FMM matvec plan (single tree, slot layout) for a BEM panel
+    kernel (cached or on-the-fly near field) or a point kernel (direct
+    P2P near field).
 
     Parameters
     ----------
     kernel : kernel object following the batched operator protocol
-        (p2m / l2p_table / m2p / near_values + near_select +
-        near_block_device + the *_matrix functions).
-    fields : dict of per-panel numpy arrays; must contain "xyz" [N,3].
+        (p2m / l2p or l2p_table / m2p / the *_matrix functions, and
+        near_values + near_select + near_block_device for a BEM kernel
+        or p2p_block for a point kernel).
+    fields : dict of per-body numpy arrays; must contain "xyz" [N,3].
         Extra arrays (panel normals, areas, BC flags, ...) are permuted
         into Morton order and passed to the kernel's batched operators.
     config : FMMConfig.
@@ -861,6 +885,34 @@ class FmmPlan:
         self.near_rows = self.near_cols = self.near_vals = None
         self._near_panel_cache = {}
         self._near_meta = None
+        self._otf_near = False
+        self._device_near = False
+        self._use_panels = False
+        self._p2p_rows = None
+        sparse = getattr(self.kernel, "near_sparse", False)
+        if not sparse:
+            # point kernel: direct P2P over the near leaf pairs.  The
+            # leaf-tile kernel (ops/p2p_tile.py) walks them by target
+            # leaf: target-sorted source list + row pointer
+            if getattr(self.kernel, "p2p_tile", False) and len(pp):
+                self._p2p_rows = sorted_pair_rows(
+                    self.p2p_src_slot, self.p2p_tgt_slot,
+                    len(self.tgt.leaf_ids),
+                )
+            return
+        # on-the-fly near mode (ref EvalInteractionLazy.hpp:239-252):
+        # no cached panel store — the regular quadrature is recomputed
+        # inside every matvec and only the O(N) near-singular
+        # corrections are cached, as DELTAS vs the regular values
+        if (
+            self.config.near_mode == "otf"
+            and getattr(self.kernel, "otf_tile", False)
+            and hasattr(self.kernel, "near_block_device")
+            and hasattr(self.kernel, "near_regular_entries")
+            and len(pp) > 0
+        ):
+            self._build_near_otf(pp)
+            return
         # device-near mode: the regular-quadrature bulk of the near
         # field is evaluated on the device directly in panel-block
         # layout; the host only assembles the near-singular CORRECTION
@@ -954,6 +1006,98 @@ class FmmPlan:
         cols = np.concatenate(cols) if cols else np.zeros(0, np.int32)
         return rows, cols
 
+    def _build_near_otf(self, pp):
+        """On-the-fly near mode (FMMConfig.near_mode="otf"): cache only
+        the near-singular corrections as DELTAS vs the regular K-point
+        quadrature; the per-iteration device product recomputes the
+        regular quadrature for every near pair (see _near_otf_core) —
+        the reference's memory-free plain lazy evaluator
+        (EvalInteractionLazy.hpp:239-252) as a leaf-tile product."""
+        kern = self.kernel
+        rows, cols = self._near_candidate_entries(pp)
+        rows = np.asarray(rows, np.int32)
+        cols = np.asarray(cols, np.int32)
+        corr = np.asarray(
+            kern.near_values(self.tgt.fields, self.src.fields, rows, cols)
+        )
+        reg = np.asarray(
+            kern.near_regular_entries(
+                self.tgt.fields, self.src.fields, rows, cols
+            )
+        )
+        # correction DELTAS in leaf-aligned value windows: a target
+        # body's near-singular corrections cluster in a few source
+        # LEAVES, so grouping per (target slot, source leaf) lets the
+        # per-iteration product gather whole charge tiles and
+        # dense-reduce instead of gathering scalar charges per entry
+        row_slot = self.tgt.body_flat_slot[rows]
+        order = np.argsort(row_slot, kind="stable")
+        self.near_rows = rows[order]
+        self.near_cols = cols[order]
+        self.near_vals = (corr - reg)[order]
+        self._otf_corr_rows = row_slot[order].astype(np.int32)
+        self._otf_corr_cols = self.src.body_flat_slot[
+            self.near_cols
+        ].astype(np.int32)
+        K_s = self.src.leaf_pad
+        nl_s = len(self.src.leaf_ids)
+        gk = self._otf_corr_rows.astype(np.int64) * (nl_s + 1) + (
+            self._otf_corr_cols // K_s
+        )
+        ug, ginv = np.unique(gk, return_inverse=True)
+        G = len(ug)
+        self._otf_corr_ginv = ginv.astype(np.int64)
+        self._otf_corr_gleaf = (ug % (nl_s + 1)).astype(np.int32)
+        grow = (ug // (nl_s + 1)).astype(np.int64)
+        # per-target-slot group lists (groups are row-major sorted)
+        urow, rinv = np.unique(grow, return_inverse=True)
+        R = len(urow)
+        fan = np.bincount(rinv)
+        Fw = int(max(fan.max(initial=1), 1))
+        gidx = np.full((R, Fw), G, np.int32)
+        korder = np.argsort(rinv, kind="stable")
+        kk = np.concatenate([np.arange(c) for c in fan]) if R else \
+            np.zeros(0, np.int64)
+        gidx[rinv[korder], kk] = korder.astype(np.int32)
+        nslots_t = len(self.tgt.leaf_ids) * self.tgt.leaf_pad
+        row_of_slot = np.full(nslots_t, R, np.int32)
+        row_of_slot[urow] = np.arange(R, dtype=np.int32)
+        self._otf_corr_gidx = gidx
+        self._otf_corr_rowof = row_of_slot
+        # beyond the window budget of (mostly-empty) leaf windows, fall
+        # back to padded-row entry lists: slower per iteration (scalar
+        # charge gathers) but several times smaller
+        self._otf_corr_windowed = (
+            G * K_s * np.dtype(self.config.dtype).itemsize
+            <= _OTF_WINDOW_LIMIT
+        )
+        if not self._otf_corr_windowed:
+            erow, einv = np.unique(
+                self._otf_corr_rows, return_inverse=True
+            )
+            Re = len(erow)
+            fan_e = np.bincount(einv)
+            We = int(-(-int(fan_e.max(initial=1)) // 8) * 8)
+            colp = np.zeros((Re, We), np.int32)
+            eorder = np.argsort(einv, kind="stable")
+            ke = np.concatenate([np.arange(c) for c in fan_e])
+            colp[einv[eorder], ke] = self._otf_corr_cols[eorder]
+            self._otf_corr_colp = colp
+            self._otf_corr_eorder = (einv[eorder], ke, eorder)
+            rowse = np.full(nslots_t, Re, np.int32)
+            rowse[erow] = np.arange(Re, dtype=np.int32)
+            self._otf_corr_rowof_e = rowse
+        self._otf_near = True
+        self._use_panels = True
+        # full near-pair slot arrays, sorted by target leaf: the
+        # leaf-tile product walks them through a row pointer
+        ss, ts = self.p2p_src_slot, self.p2p_tgt_slot
+        order = np.lexsort((ss, ts))
+        self._otf_sslot = ss[order].astype(np.int32)
+        self._otf_tslot = ts[order].astype(np.int32)
+        self._otf_KQ = int(np.asarray(self.src.fields["qp_off"]).shape[1])
+        self._otf_src_dev = None
+
     # ------------------------------------------------------------------
     # device tables
     # ------------------------------------------------------------------
@@ -982,7 +1126,9 @@ class FmmPlan:
             vsel = self.kernel.near_select(
                 self.near_vals, bc[self.near_rows] if len(bc) else None
             )
-            if self._device_near:
+            if self._otf_near:
+                dev, meta = self._otf_panels(tf, vsel), None
+            elif self._device_near:
                 dev, meta = build_near_panels_on_device(
                     self.p2p_src_slot,
                     self.p2p_tgt_slot,
@@ -1014,6 +1160,99 @@ class FmmPlan:
                     next(iter(self._near_panel_cache))
                 )
         return self._near_panel_cache[key], self._near_meta
+
+    def _otf_panels(self, tgt_fields_host, vsel):
+        """Device state of the on-the-fly near field for one BC
+        variant: the packed leaf tiles and the BC-selected correction
+        deltas, as leaf windows (``corr_valw``) or, past the window
+        budget, as padded entry rows (``corr_colp``)."""
+        dev = {"otf_tiles": self._otf_tiles(tgt_fields_host)}
+        if len(self.near_rows) and self._otf_corr_windowed:
+            K_s = self.src.leaf_pad
+            G = len(self._otf_corr_gleaf)
+            valw = np.zeros((G, K_s), np.dtype(self.config.dtype))
+            valw[self._otf_corr_ginv, self._otf_corr_cols % K_s] = vsel
+            dev["corr_valw"] = self._tensor(valw)
+            dev["corr_gleaf"] = self._index(self._otf_corr_gleaf)
+            dev["corr_gidx"] = self._index(self._otf_corr_gidx)
+            dev["corr_rowof"] = self._index(self._otf_corr_rowof)
+        elif len(self.near_rows):
+            ei, ke, eorder = self._otf_corr_eorder
+            valp = np.zeros(
+                self._otf_corr_colp.shape, np.dtype(self.config.dtype)
+            )
+            valp[ei, ke] = vsel[eorder]
+            dev["corr_colp"] = self._index(self._otf_corr_colp)
+            dev["corr_valp"] = self._tensor(valp)
+            dev["corr_rowof_e"] = self._index(self._otf_corr_rowof_e)
+        return dev
+
+    def _otf_tiles(self, tgt_fields_host):
+        """Packed leaf tiles for the on-the-fly near product
+        (ops/otf_tile.py) and the target-sorted pair list.  The source
+        tiles and the pair list are plan constants; the target tiles
+        carry the variant's BC flags."""
+        npdt = np.dtype(self.config.dtype)
+        if self._otf_src_dev is None:
+            idx = self.src.leaf_body_idx
+            tiled = {
+                k: np.asarray(self.src.fields[k])[idx]
+                for k in ("xyz", "qp_off", "qw", "area", "normal")
+            }
+            nl_t = len(self.tgt.leaf_ids)
+            self._otf_src_dev = {
+                "sb_src": self._tensor(pack_otf_src(
+                    tiled, self.src.leaf_body_mask, self._otf_KQ, npdt
+                )),
+                "sslot": self._tensor(self._otf_sslot, torch.int32),
+                "row_ptr": self._tensor(
+                    chunk_row_ptr(self._otf_tslot, nl_t), torch.int32
+                ),
+            }
+        t_idx = self.tgt.leaf_body_idx
+        bc = tgt_fields_host.get("bc", self.tgt.fields.get("bc"))
+        out = dict(self._otf_src_dev)
+        out["sb_tgt"] = self._tensor(pack_otf_tgt(
+            np.asarray(self.tgt.fields["xyz"])[t_idx],
+            np.asarray(bc)[t_idx], self.tgt.leaf_body_mask, npdt,
+        ))
+        return out
+
+    def _near_otf_core(self, dev, ql):
+        """On-the-fly near product from leaf-tiled charges: the regular
+        quadrature of every near pair recomputed on the device + the
+        cached correction-delta product.  Returns [nl_t, KT]."""
+        ot = dev["otf_tiles"]
+        res = otf_leaf_tiles(
+            ot["sb_src"], ql.contiguous(), ot["sb_tgt"], ot["row_ptr"],
+            ot["sslot"], self._otf_KQ,
+            kappa=float(getattr(self.kernel, "kappa", 0.0) or 0.0),
+        )
+        return self._near_otf_corr(dev, ql, res)
+
+    def _near_otf_corr(self, dev, ql, res):
+        """Correction-delta product: leaf-tile charge gathers per
+        (target slot, source leaf) group, dense window reduce, then
+        two small gathers back to slot rows (scatter-free).  The
+        padded-row variant (corr_colp) trades scalar charge gathers
+        for a several times smaller store at multi-million-panel
+        sizes."""
+
+        def with_zero(x):
+            return torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])
+
+        if "corr_valw" in dev:
+            qg = with_zero(ql)[dev["corr_gleaf"]]      # [G, K] tiles
+            s_g = with_zero(torch.sum(dev["corr_valw"] * qg, dim=1))
+            rs = with_zero(torch.sum(s_g[dev["corr_gidx"]], dim=1))
+            return res + rs[dev["corr_rowof"]].reshape(res.shape)
+        if "corr_colp" in dev:
+            qlf = ql.reshape(-1)
+            rows = with_zero(
+                torch.sum(dev["corr_valp"] * qlf[dev["corr_colp"]], dim=1)
+            )
+            return res + rows[dev["corr_rowof_e"]].reshape(res.shape)
+        return res
 
     def _near_blocks_fn(self, tgt_fields_host):
         """Device routine for the regular-quadrature interaction blocks
@@ -1095,6 +1334,16 @@ class FmmPlan:
                 "s_box_center": self._tensor(self.src.tree.box_center),
             }
         )
+        if self._p2p_rows is not None:
+            src_sorted, row_ptr = self._p2p_rows
+            d["p2p_src_sorted"] = self._tensor(src_sorted, torch.int32)
+            d["p2p_row_ptr"] = self._tensor(row_ptr, torch.int32)
+            # plan-constant [nl, 3, K] leaf xyz tiles for the packed
+            # charge ride-along (ops/p2p_tile.pack_xyzq)
+            d["p2p_xyz3"] = self._tensor(
+                self.src.tree.points[self.src.leaf_body_idx]
+                .transpose(0, 2, 1)
+            )
         if self.m2l_fam is not None:
             f = self.m2l_fam
             d.update(
@@ -1153,7 +1402,8 @@ class FmmPlan:
     # ------------------------------------------------------------------
     def variant_aux(self, p, src_host=None, tgt_host=None):
         """Per-(BC-variant, p) device auxiliaries: near panels + the
-        precomputed linear P2M / L2P tables.
+        precomputed linear P2M / L2P tables (L2P only where the kernel
+        provides ``l2p_table``).
 
         P2M and L2P are linear maps (multipole of a charge distribution
         / evaluation of a local expansion) whose harmonic recurrences
@@ -1197,18 +1447,19 @@ class FmmPlan:
                 fcache.pop(next(iter(fcache)))
         t3 = fcache[full_key][..., :W]
         aux["p2m_tab"] = t3.reshape(t3.shape[0], -1)
-        lcache = self._l2p_tab_cache
-        if full_key not in lcache:
-            lcache[full_key] = kern.l2p_table(
-                self.device_fields(tfh),
-                self._tensor(self.tgt.body_dnorm),
-                self._tensor(self.tgt.body_inv_sigma),
-                pmax,
-            )  # [n, ncomp, Wmax, rdim]
-            if len(lcache) > 4:
-                lcache.pop(next(iter(lcache)))
-        t4 = lcache[full_key][..., :W, :]
-        aux["l2p_tab"] = t4.reshape(t4.shape[0], -1, t4.shape[-1])
+        if callable(getattr(kern, "l2p_table", None)):
+            lcache = self._l2p_tab_cache
+            if full_key not in lcache:
+                lcache[full_key] = kern.l2p_table(
+                    self.device_fields(tfh),
+                    self._tensor(self.tgt.body_dnorm),
+                    self._tensor(self.tgt.body_inv_sigma),
+                    pmax,
+                )  # [n, ncomp, Wmax, rdim]
+                if len(lcache) > 4:
+                    lcache.pop(next(iter(lcache)))
+            t4 = lcache[full_key][..., :W, :]
+            aux["l2p_tab"] = t4.reshape(t4.shape[0], -1, t4.shape[-1])
         self._aux_cache[key] = aux
         if len(self._aux_cache) > 8:
             self._aux_cache.pop(next(iter(self._aux_cache)))
@@ -1221,7 +1472,9 @@ class FmmPlan:
         does no body-index gathers at all.
 
         Layouts: k-major P2M ``[K, nl, cW]`` and w-major L2P
-        ``[rdim, cW, nl, K]`` — the contraction axis leads."""
+        ``[rdim, cW, nl, K]`` — the contraction axis leads.  A kernel
+        without ``l2p_table`` gets its field rows, normalised offsets
+        and scales in slot order instead."""
         sfh = src_host if src_host is not None else self.src.fields
         tfh = tgt_host if tgt_host is not None else self.tgt.fields
         bc_s = np.asarray(sfh.get("bc", np.zeros(0)))
@@ -1244,13 +1497,21 @@ class FmmPlan:
         aux["p2m_tab_t"] = (
             g.reshape(nl_s, K_s, -1).permute(1, 0, 2).contiguous()
         )
-        tab = aux["l2p_tab"]  # [n, cW, rdim]
-        g = tab[t_idx] * t_msk[:, None, None].to(tab.dtype)
-        aux["l2p_tab_t"] = (
-            g.reshape(nl_t, K_t, tab.shape[1], tab.shape[2])
-            .permute(3, 2, 0, 1)
-            .contiguous()
-        )
+        if "l2p_tab" in aux:
+            tab = aux["l2p_tab"]  # [n, cW, rdim]
+            g = tab[t_idx] * t_msk[:, None, None].to(tab.dtype)
+            aux["l2p_tab_t"] = (
+                g.reshape(nl_t, K_t, tab.shape[1], tab.shape[2])
+                .permute(3, 2, 0, 1)
+                .contiguous()
+            )
+        else:
+            # no linear table: the kernel's own L2P runs per matvec on
+            # slot-ordered field rows
+            tfd = self.device_fields(tfh)
+            aux["t_fields_t"] = {k: v[t_idx] for k, v in tfd.items()}
+            aux["t_dn_t"] = self._tensor(self.tgt.body_dnorm)[t_idx]
+            aux["t_isig_t"] = self._tensor(self.tgt.body_inv_sigma)[t_idx]
         self._aux_slots_cache[key] = aux
         if len(self._aux_slots_cache) > 8:
             self._aux_slots_cache.pop(next(iter(self._aux_slots_cache)))
@@ -1285,14 +1546,14 @@ class FmmPlan:
         and exit (``solver_ops_slots``):
 
         - P2M consumes the slot-ordered linear table directly;
-        - the near-field panels and the M2P leaf pass are natively
-          tile-shaped (ref EvalInteractionLazySparse.hpp:134-150 role);
+        - the near-field panels and the P2P / M2P leaf passes are
+          natively tile-shaped (ref EvalInteractionLazySparse.hpp:134-150
+          role);
         - L2P broadcasts each leaf's local expansion over its tile.
 
         Padded slots stay exactly zero through every phase, so solver
         dot products and norms need no masking.  Returns [nl*K, rdim].
         """
-        del sfields
         nl_s, K_s = len(self.src.leaf_ids), self.src.leaf_pad
         nl_t, K_t = len(self.tgt.leaf_ids), self.tgt.leaf_pad
 
@@ -1305,8 +1566,12 @@ class FmmPlan:
         res_t = self._l2p_slots(d, aux, L, p)
         if len(self.m2p_src):
             res_t = res_t + self._m2p_pass(d, tfields, M, p, nl_t, K_t)
-        if "panels" in aux:
+        if self.near_rows is not None and "panels" in aux:
             res_t = res_t + self._near_pass_slots(aux, q_t)
+        elif self.near_rows is None and len(self.p2p_src_slot):
+            res_t = res_t + self._p2p_pass(
+                d, sfields, tfields, q_t, nl_t, K_t
+            )
         return res_t
 
     def _p2m_slots(self, d, aux, q_t, p):
@@ -1332,17 +1597,30 @@ class FmmPlan:
         nl_s, K_s = len(self.src.leaf_ids), self.src.leaf_pad
         nl_t, K_t = len(self.tgt.leaf_ids), self.tgt.leaf_pad
         ql = q_t.reshape(nl_s, K_s)
-        out_leaf = panel_matvec(aux["panels"], aux["near_meta"], ql)
+        if "otf_tiles" in aux["panels"]:
+            out_leaf = self._near_otf_core(aux["panels"], ql)
+        else:
+            out_leaf = panel_matvec(aux["panels"], aux["near_meta"], ql)
         return out_leaf.reshape(nl_t * K_t, self.kernel.result_dim)
 
     def _l2p_slots(self, d, aux, L, p):
         """L2P in slot layout: each leaf's local expansion broadcasts
-        over its tile through the w-major table [rdim, cW, nl, K]."""
-        del p
+        over its tile through the w-major table [rdim, cW, nl, K], or
+        through the kernel's own ``l2p`` where it has no table."""
+        kern = self.kernel
         nl_t, K_t = len(self.tgt.leaf_ids), self.tgt.leaf_pad
         Ll = L[d["t_leaf_ids"]]  # [nl, cW]
-        out = torch.einsum("rwnk,nw->rnk", aux["l2p_tab_t"], Ll)
-        return out.reshape(-1, nl_t * K_t).T
+        if "l2p_tab_t" in aux:
+            out = torch.einsum("rwnk,nw->rnk", aux["l2p_tab_t"], Ll)
+            return out.reshape(-1, nl_t * K_t).T
+        W = kern.width(p)
+        Lb = Ll[:, None, :].expand(nl_t, K_t, kern.ncomp * W).reshape(
+            nl_t * K_t, kern.ncomp, W
+        )
+        out = kern.l2p(
+            aux["t_fields_t"], Lb, aux["t_dn_t"], aux["t_isig_t"], p
+        )
+        return torch.where(d["t_slot_mask"][:, None], out, 0.0)
 
     def _phase_m2l(self, d, M, p):
         """M2L = family path (same-level pairs grouped by parents, one
@@ -1473,6 +1751,50 @@ class FmmPlan:
         # padded slots hold kernel values at dummy bodies — zero them
         return torch.where(d["t_slot_mask"][:, None], out, 0.0)
 
+    def _p2p_pass(self, d, sfields, tfields, q_t, nl, K):
+        """Direct P2P over the near leaf pairs of a point kernel.
+        ``q_t`` holds the per-source-leaf charge tiles (flat [nl_s*K_s],
+        padded slots already zeroed).  Kernels with the Laplace tile
+        math go through ops/p2p_tile.py; any other point kernel runs
+        its own ``p2p_block`` batched over chunks of pairs.  Returns
+        [nl*K, rdim] with padded slots zero."""
+        kern = self.kernel
+        if "p2p_row_ptr" in d:
+            return self._p2p_pass_tiles(d, q_t, nl, K)
+        sslot, tslot = d["p2p_src_slot"], d["p2p_tgt_slot"]
+        sidx, tidx = d["s_leaf_body_idx"], d["t_leaf_body_idx"]
+        lt_s = {k: v[sidx] for k, v in sfields.items()}
+        lt_t = {k: v[tidx] for k, v in tfields.items()}
+        qt = q_t.reshape(-1, self.src.leaf_pad)
+        block = torch.vmap(kern.p2p_block)
+        seg = torch.zeros(
+            (nl, K, kern.result_dim), dtype=q_t.dtype, device=q_t.device
+        )
+        npair = sslot.shape[0]
+        chunk = self.config.p2p_chunk if self.config.p2p_chunk > 0 else npair
+        for c0 in range(0, npair, chunk):
+            ss, ts = sslot[c0 : c0 + chunk], tslot[c0 : c0 + chunk]
+            vals = block(
+                {k: v[ts] for k, v in lt_t.items()},
+                {k: v[ss] for k, v in lt_s.items()},
+                qt[ss], d["s_leaf_body_mask"][ss],
+            )
+            seg.index_add_(0, ts, vals)
+        out = seg.reshape(nl * K, -1)
+        return torch.where(d["t_slot_mask"][:, None], out, 0.0)
+
+    def _p2p_pass_tiles(self, d, q_t, nl, K):
+        """Point P2P through the leaf-tile product (ops/p2p_tile.py):
+        the whole pair computation stays on chip instead of
+        materialising npairs*[K, K] planes in device memory."""
+        xyzq = pack_xyzq(d["p2p_xyz3"], q_t.reshape(nl, 1, K))
+        out = p2p_leaf_tiles(
+            xyzq, d["p2p_row_ptr"], d["p2p_src_sorted"], self.kernel.eps2
+        )  # [nl, 4, K] in leaf order
+        out_rows = out.permute(0, 2, 1).reshape(nl * K, 4)
+        # padded slots hold kernel values at dummy bodies — zero them
+        return torch.where(d["t_slot_mask"][:, None], out_rows, 0.0)
+
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
@@ -1491,11 +1813,21 @@ class FmmPlan:
 
         ``flipped=True`` applies the BC-flipped operator (the
         reference's switch_BC system matrix, LaplaceBEM.cpp:218-232).
+        Returns ``None`` when charge and result dimensions differ (a
+        point kernel with forces is no square operator to solve with).
         """
+        if getattr(self.kernel, "charge_dim", 1) != self.kernel.result_dim:
+            return None
         sfh = self._flipped_fields() if flipped else None
-        return self._slot_ops(sfh)
+        mv, op4p, to_s, from_s, nslots = self._slot_ops(sfh)
+        return (
+            lambda operand, x, p: mv(operand, x, p)[:, 0],
+            op4p, to_s, lambda rt: from_s(rt)[:, 0], nslots,
+        )
 
     def _slot_ops(self, fields_host):
+        """The slot-space operator with full result rows:
+        ``matvec -> [nslots, rdim]``, ``from_slots -> [n, rdim]``."""
         nl_s, K_s = len(self.src.leaf_ids), self.src.leaf_pad
         n = self.src.tree.num_bodies
         sf = self.device_fields(fields_host)
@@ -1509,10 +1841,9 @@ class FmmPlan:
 
         def matvec(operand, x, p):
             d, aux, sfo, tfo = operand
-            out = self._matvec_slots(
+            return self._matvec_slots(
                 d, aux, sfo, tfo, x, min(int(p), self.config.max_p)
             )
-            return out[:, 0]
 
         # solve entry/exit index maps (user order <-> slot order)
         if self._slot_maps is None:
@@ -1537,7 +1868,7 @@ class FmmPlan:
             return torch.where(smask, xu.reshape(n)[slot_user], 0.0)
 
         def from_slots(rt):
-            return rt.reshape(-1)[user_slot]
+            return rt.reshape(-1, self.kernel.result_dim)[user_slot]
 
         return matvec, operand_for_p, to_slots, from_slots, nl_s * K_s
 
@@ -1555,7 +1886,7 @@ class FmmPlan:
         p = int(p if p is not None else self.config.max_p)
         p = min(p, self.config.max_p)
         mv, op4p, to_s, from_s, _ = self._slot_ops(fields)
-        return from_s(mv(op4p(p), to_s(charges), p))[:, None]
+        return from_s(mv(op4p(p), to_s(charges), p))
 
     def calibrate_eps(self, q=None, ps=None, seed=0):
         """Measure the matvec truncation-error decay eps(p) and fit

@@ -47,6 +47,9 @@ class LaplaceBEMKernel:
     near_sparse = True
     scale_invariant = True
     kappa = 0.0  # Yukawa subclassing hook for the shared block routine
+    #: the on-the-fly near product runs as the leaf-tile kernel of
+    #: ops/otf_tile.py (this class's ``near_block_device`` math)
+    otf_tile = True
 
     def __init__(self, K=3, fine_K=17):
         self.K = K
@@ -140,6 +143,37 @@ class LaplaceBEMKernel:
         G, dG = near_entries_laplace(
             tgt_fields, src_fields, rows, cols, fine_K=self.fine_K
         )
+        return np.stack([G, dG], axis=1)
+
+    def near_regular_entries(self, tgt_fields, src_fields, rows, cols):
+        """Plain K-point quadrature (G, dGdn) at the given entries —
+        the value ``near_block_device`` produces for them on the fly.
+        Used by the on-the-fly near mode (FMMConfig.near_mode="otf") to
+        turn the host corrections into DELTAS: the per-iteration device
+        product recomputes the regular quadrature for every entry and
+        a small cached store adds (corrected - regular) on top
+        (ref EvalInteractionLazy.hpp:239-252, the memory-free near
+        field this mode mirrors)."""
+        t = np.asarray(tgt_fields["xyz"])[rows]
+        c = np.asarray(src_fields["xyz"])[cols]
+        qp = np.asarray(src_fields["qp_off"])[cols] + c[:, None, :]
+        w = (
+            np.asarray(src_fields["qw"])[cols]
+            * np.asarray(src_fields["area"])[cols][:, None]
+        )
+        nrm = np.asarray(src_fields["normal"])[cols]
+        d = t[:, None, :] - qp
+        r2 = np.maximum((d * d).sum(-1), 1e-30)
+        r = np.sqrt(r2)
+        if self.kappa:
+            scr = np.exp(-self.kappa * r)
+            G = (w * scr / r).sum(-1)
+            dn = -(d * nrm[:, None, :]).sum(-1)
+            dG = (w * dn * (self.kappa * r + 1.0) * scr / (r2 * r)).sum(-1)
+        else:
+            G = (w / r).sum(-1)
+            dn = -(d * nrm[:, None, :]).sum(-1)
+            dG = (w * dn / (r2 * r)).sum(-1)
         return np.stack([G, dG], axis=1)
 
     def near_select(self, vals, bc_rows):

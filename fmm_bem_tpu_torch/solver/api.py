@@ -55,7 +55,13 @@ def solve_plan(
         )
     b = np.asarray(b).reshape(-1)
     solver = fgmres_device if flexible else gmres_device
-    mv, op4p, to_s, from_s, _ = plan.solver_ops_slots(flipped=flipped)
+    ops = plan.solver_ops_slots(flipped=flipped)
+    if ops is None:
+        raise ValueError(
+            "solve_plan: the plan's kernel maps charges to results of "
+            "another dimension; there is no square operator to solve with"
+        )
+    mv, op4p, to_s, from_s, _ = ops
     Mfn = None
     if M_diag is not None:
         dslot = to_s(1.0 / np.asarray(M_diag))

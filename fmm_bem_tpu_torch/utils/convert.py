@@ -9,6 +9,11 @@ takes.  The table layouts of the two packages are the same, so nothing
 is transposed: integers become index tensors, floats take the working
 dtype, and the near-panel index arrays get the int32 form and the row
 pointer the CUDA kernel reads.
+
+``otf_panels_from_numpy`` does the same for the on-the-fly near mode:
+the reference plan's ``near_panels()`` dict (leaf-tiled panel fields,
+target-sorted pair lists, correction deltas and their index structures)
+becomes the ``"panels"`` dict this package's ``_near_otf_core`` takes.
 """
 
 from __future__ import annotations
@@ -16,7 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fmm_bem_tpu_torch.ops.near_panel import NearPanels
+from fmm_bem_tpu_torch.ops.near_panel import NearPanels, chunk_row_ptr
+from fmm_bem_tpu_torch.ops.otf_tile import pack_otf_src, pack_otf_tgt
 
 
 def _to_torch(obj, device, dtype):
@@ -81,3 +87,52 @@ def operand_from_numpy(d, aux, panels, meta, device="cuda",
         device, dtype,
     )
     return _to_torch(d, device, dtype), out_aux, sf, sf
+
+
+def otf_panels_from_numpy(panels, device="cuda", dtype=torch.float32):
+    """Build the on-the-fly ``"panels"`` dict from numpy state.
+
+    panels : the reference plan's OTF ``near_panels()[0]`` as numpy:
+        ``otf_tiles`` with the leaf-tiled fields ``s_tiles`` / ``t_tiles``
+        (one dummy leaf row appended), their masks and the target-sorted
+        chunk-padded pair lists ``sslot`` / ``tslot``, plus the
+        correction deltas (``corr_valw`` + ``corr_gleaf`` / ``corr_gidx``
+        / ``corr_rowof``, or ``corr_colp`` + ``corr_valp`` /
+        ``corr_rowof_e``).
+    The leaf tiles are packed here, in ``dtype``, into the source and
+    target tables of ops/otf_tile.py; the pair lists lose their chunk
+    padding and get the int32 form and the row pointer the CUDA kernel
+    reads.
+    """
+    device = torch.device(device)
+    npdt = np.float64 if dtype == torch.float64 else np.float32
+    ot = panels["otf_tiles"]
+    s_mask = np.asarray(ot["s_mask"])[:-1]
+    t_mask = np.asarray(ot["t_mask"])[:-1]
+    s_tiles = {k: np.asarray(v)[:-1] for k, v in ot["s_tiles"].items()}
+    KQ = s_tiles["qp_off"].shape[2]
+    # the reference pads both lists to whole chunks with the dummy leaf
+    tslot = np.asarray(ot["tslot"], np.int32)
+    real = tslot < len(t_mask)
+    sslot = np.asarray(ot["sslot"], np.int32)[real]
+    tslot = tslot[real]
+
+    def put(a, dt):
+        return torch.as_tensor(np.array(a), dtype=dt, device=device)
+
+    out = _to_torch(
+        {k: v for k, v in panels.items() if k != "otf_tiles"}, device, dtype
+    )
+    out["otf_tiles"] = {
+        "sb_src": put(pack_otf_src(s_tiles, s_mask, KQ, npdt), dtype),
+        "sb_tgt": put(
+            pack_otf_tgt(
+                np.asarray(ot["t_tiles"]["xyz"])[:-1],
+                np.asarray(ot["t_tiles"]["bc"])[:-1], t_mask, npdt,
+            ),
+            dtype,
+        ),
+        "sslot": put(sslot, torch.int32),
+        "row_ptr": put(chunk_row_ptr(tslot, len(t_mask)), torch.int32),
+    }
+    return out

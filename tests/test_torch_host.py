@@ -3,9 +3,12 @@ interaction lists, M2L classes / families / tiles and near-field entries
 of the two plans, built from the same panels, are the same arrays —
 integers exactly, floats to 1e-14 (the port's host modules are copies of
 the numpy code).  Also: importing the port pulls in neither jax nor the
-JAX package, and what this slice does not cover raises at plan build."""
+JAX package (at run time, and in the text of every source file), and
+what the port does not cover yet raises at plan build."""
 
+import ast
 import dataclasses
+import pathlib
 import subprocess
 import sys
 
@@ -20,8 +23,13 @@ import fmm_bem_tpu_torch as T
 from fmm_bem_tpu.bem.panels import make_panels
 from fmm_bem_tpu.bem.triangulation import unit_sphere
 from fmm_bem_tpu.kernels.laplace_bem import LaplaceBEMKernel as JKernel
+from fmm_bem_tpu.ops import otf_tile as j_otf
 from fmm_bem_tpu_torch.config import Evaluator
+from fmm_bem_tpu_torch.kernels.laplace import LaplaceKernel as TLaplace
 from fmm_bem_tpu_torch.kernels.laplace_bem import LaplaceBEMKernel as TKernel
+from fmm_bem_tpu_torch.kernels.unit import UnitKernel as TUnit
+from fmm_bem_tpu_torch.ops import otf_tile as t_otf
+from fmm_bem_tpu_torch.ops import p2p_tile as t_p2p
 
 #: (sphere recursion, ncrit): both trees have three levels, M2L families
 #: and residual tiles
@@ -127,6 +135,101 @@ def test_near_entries(plans):
         same(getattr(jp, name), getattr(tp, name), name)
 
 
+@pytest.mark.parametrize("kappa", [0.0, 0.5])
+def test_near_regular_entries(plans, kappa):
+    """The host K-point rule the OTF deltas are taken against."""
+    jp, tp = plans
+    jk, tk = JKernel(K=3), TKernel(K=3)
+    jk.kappa = tk.kappa = kappa
+    rows, cols = tp.near_rows, tp.near_cols
+    want = jk.near_regular_entries(jp.tgt.fields, jp.src.fields, rows, cols)
+    got = tk.near_regular_entries(tp.tgt.fields, tp.src.fields, rows, cols)
+    assert got.shape == (len(rows), 2)
+    same(want, got, "near_regular_entries")
+
+
+def test_otf_packers(plans):
+    """The packed leaf tiles of the on-the-fly near product, at the JAX
+    package's f32 and, for the f64 tests, at f64."""
+    jp, tp = plans
+    side = tp.src
+    idx, mask = side.leaf_body_idx, side.leaf_body_mask
+    tiled = {
+        k: np.asarray(side.fields[k])[idx]
+        for k in ("xyz", "qp_off", "qw", "area", "normal")
+    }
+    bc = np.asarray(side.fields["bc"])[idx]
+    assert j_otf.SENTINEL == t_otf.SENTINEL == t_p2p.SENTINEL
+    src32 = t_otf.pack_otf_src(tiled, mask, 3)
+    tgt32 = t_otf.pack_otf_tgt(tiled["xyz"], bc, mask)
+    same(j_otf.pack_otf_src(tiled, mask, 3), src32, "pack_otf_src")
+    same(j_otf.pack_otf_tgt(tiled["xyz"], bc, mask), tgt32, "pack_otf_tgt")
+    assert src32.shape == (len(idx) + 1, 15, side.leaf_pad)
+    src64 = t_otf.pack_otf_src(tiled, mask, 3, np.float64)
+    tgt64 = t_otf.pack_otf_tgt(tiled["xyz"], bc, mask, np.float64)
+    assert src64.dtype == tgt64.dtype == np.float64
+    np.testing.assert_array_equal(src64.astype(np.float32), src32)
+    np.testing.assert_array_equal(tgt64.astype(np.float32), tgt32)
+    # padded panels and the closing dummy tile: at the sentinel, with
+    # zero weight
+    pad = np.concatenate([~mask, np.ones((1, side.leaf_pad), bool)])
+    pts = src64[:, :9].transpose(0, 2, 1)[pad]
+    wts = src64[:, 9:12].transpose(0, 2, 1)[pad]
+    assert (pts == t_otf.SENTINEL).all() and (wts == 0).all()
+    assert (tgt64[:, :3].transpose(0, 2, 1)[pad] == t_otf.SENTINEL).all()
+
+
+def test_sorted_pair_rows(plans):
+    """The target-sorted pair list of the leaf-tile kernels is the pair
+    order of the JAX package's super-block construction (``np.lexsort`` by
+    target then source), with a row pointer in place of its chunks."""
+    jp, tp = plans
+    nl = len(tp.leaf_ids)
+    src_sorted, row_ptr = t_p2p.sorted_pair_rows(
+        tp.p2p_src_slot, tp.p2p_tgt_slot, nl)
+    order = np.lexsort((jp.p2p_src_slot, jp.p2p_tgt_slot))
+    np.testing.assert_array_equal(src_sorted, jp.p2p_src_slot[order])
+    assert src_sorted.dtype == row_ptr.dtype == np.int32
+    ts = jp.p2p_tgt_slot[order]
+    for leaf in (0, nl // 2, nl - 1):
+        assert (ts[row_ptr[leaf]:row_ptr[leaf + 1]] == leaf).all()
+    assert row_ptr[0] == 0 and row_ptr[-1] == len(order)
+
+
+PORT_SOURCES = sorted(
+    str(p.relative_to(pathlib.Path(T.__file__).parents[1]))
+    for p in [
+        *pathlib.Path(T.__file__).parent.rglob("*.py"),
+        pathlib.Path(T.__file__).parents[1] / "chip_smoke.py",
+    ]
+)
+
+
+@pytest.mark.parametrize("source", PORT_SOURCES)
+def test_source_imports_no_jax_and_no_triton_at_module_level(source):
+    """Every file of the port and ``chip_smoke.py``: no import of jax or
+    of the JAX package anywhere, and no import of triton outside a
+    function (there is none on a machine without a GPU)."""
+    path = pathlib.Path(T.__file__).parents[1] / source
+    tree = ast.parse(path.read_text(), filename=source)
+
+    def roots(node):
+        if isinstance(node, ast.Import):
+            return [a.name.split(".")[0] for a in node.names]
+        if isinstance(node, ast.ImportFrom) and node.level == 0:
+            return [(node.module or "").split(".")[0]]
+        return []
+
+    everywhere = {r for n in ast.walk(tree) for r in roots(n)}
+    assert not everywhere & {"jax", "jaxlib", "fmm_bem_tpu"}, source
+    top = {r for n in tree.body for r in roots(n)}
+    assert "triton" not in top, source
+
+
+def test_port_sources_were_found():
+    assert len(PORT_SOURCES) > 25 and "chip_smoke.py" in PORT_SOURCES
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -150,11 +253,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert out.stdout.startswith("clean")
 
 
-class _PointKernel(TKernel):
-    near_sparse = False
+class _VectorBEMKernel(TKernel):
+    """Stands for Stokes: a BEM kernel with 3-vector results."""
 
-    def p2p_block(self, *a):
-        raise AssertionError("never reached")
+    result_dim = 3
+
+
+class _NonLinearP2M(TKernel):
+    linear_p2m = False
 
 
 @pytest.mark.parametrize(
@@ -162,10 +268,11 @@ class _PointKernel(TKernel):
     [
         ("target_fields", {"target_fields": True}),
         ("TREECODE", {"config": {"evaluator": Evaluator.TREECODE}}),
-        ("near_mode", {"config": {"near_mode": "otf"}}),
         ("local_evaluation", {"config": {"local_evaluation": True}}),
         ("block_diagonal", {"config": {"block_diagonal": True}}),
-        ("near_sparse", {"kernel": _PointKernel(K=3)}),
+        ("near_panel=False", {"config": {"near_panel": False}}),
+        ("vector-valued", {"kernel": _VectorBEMKernel(K=3)}),
+        ("linear P2M", {"kernel": _NonLinearP2M(K=3)}),
     ],
 )
 def test_unported_features_raise_at_plan_build(what, kwargs):
@@ -178,6 +285,41 @@ def test_unported_features_raise_at_plan_build(what, kwargs):
             kwargs.get("kernel", TKernel(K=3)), fields, cfg,
             target_fields=fields if "target_fields" in kwargs else None,
             device="cpu",
+        )
+
+
+@pytest.mark.parametrize(
+    "what", ["near_mode_otf", "point_kernel", "unit_kernel"])
+def test_ported_features_build(what):
+    """What earlier slices refused: the on-the-fly near mode and kernels
+    without ``near_sparse`` (point kernels)."""
+    fields = make_panels(unit_sphere(2), K=3)
+    if what == "near_mode_otf":
+        plan = T.FmmPlan(
+            TKernel(K=3), fields,
+            T.FMMConfig(ncrit=8, dtype="float64", max_p=4, near_mode="otf"),
+            device="cpu",
+        )
+        assert plan._otf_near and plan.near_panels()[1] is None
+    else:
+        kern = TLaplace() if what == "point_kernel" else TUnit()
+        plan = T.FmmPlan(
+            kern, {"xyz": fields["xyz"]},
+            T.FMMConfig(ncrit=8, dtype="float64", max_p=4), device="cpu",
+        )
+        assert plan.near_rows is None and plan.near_panels() == (None, None)
+        assert (plan._p2p_rows is not None) == (what == "point_kernel")
+    out = plan.apply(np.ones(len(fields["xyz"])), p=3)
+    assert out.shape == (len(fields["xyz"]), plan.kernel.result_dim)
+    assert bool(torch.isfinite(out).all())
+
+
+def test_unknown_near_mode_is_refused():
+    fields = make_panels(unit_sphere(2), K=3)
+    with pytest.raises(ValueError, match="near_mode"):
+        T.FmmPlan(
+            TKernel(K=3), fields,
+            T.FMMConfig(ncrit=8, max_p=4, near_mode="lazy"), device="cpu",
         )
 
 
