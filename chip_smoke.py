@@ -19,7 +19,14 @@ card, and drives the port's paths at full size:
   ones;
 - path B, the point kernel: one ``FmmPlan.apply`` of ``LaplaceKernel``
   (potential + force) on 1,000,000 points at p=5, held against direct
-  summation on a sample of 1,000 targets.
+  summation on a sample of 1,000 targets;
+- the Stokes path: flow past a unit sphere of 32,768 panels = 98,304
+  unknowns (``StokesBEMKernel(K=4, fine_K=19, mu=1e-3)``, ncrit=64,
+  leaf_pad=64, f32, max_p=10): the right-hand side through the
+  double-layer variant against 4 pi, the relaxed solve at p=8 with the
+  order floor of 5 and the same solve at fixed p=8, the drag against
+  Stokes' law, chained matvecs at p=8 and p=5, the profile.  Its near
+  field (3x3 blocks) goes through the chunk-contraction kernel.
 
 Each path's kernel launches are counted from zero just before it is
 driven and read just after.  Each phase prints one JSON line; any
@@ -27,7 +34,7 @@ failure exits non-zero.  There is no CPU fallback: without a GPU the
 script fails before it prints anything.
 
 ``--quick`` runs every path at a small size (8,192 panels, 50,000
-points) for a look of a minute.
+points, 2,048 Stokes panels) for a look of two minutes.
 """
 
 import argparse
@@ -49,10 +56,12 @@ if not torch.cuda.is_available():
 
 import fmm_bem_tpu_torch as fbt
 from fmm_bem_tpu_torch import native
+from fmm_bem_tpu_torch.config import default_p_tiers
 from fmm_bem_tpu_torch.bem.panels import make_panels
 from fmm_bem_tpu_torch.bem.triangulation import unit_sphere
 from fmm_bem_tpu_torch.kernels.laplace import LaplaceKernel
 from fmm_bem_tpu_torch.kernels.laplace_bem import LaplaceBEMKernel
+from fmm_bem_tpu_torch.kernels.stokes_bem import StokesBEMKernel
 from fmm_bem_tpu_torch.ops import _build
 from fmm_bem_tpu_torch.ops import near_panel as npl
 from fmm_bem_tpu_torch.ops import otf_tile as otf
@@ -78,11 +87,12 @@ PEAK_SFU_PER_S = 132 * 16 * 1.98e9
 #: multiply-adds (6) = 18, + 1 rsqrt.
 OTF_FLOPS = {False: (10, 18), True: (13, 23)}  # kappa > 0: (G, dG)
 P2P_FLOPS = 18
-#: the three kernels; their wrappers carry the launch counts
+#: the four kernels; their wrappers carry the launch counts
 WRAPPERS = {
-    "near_panel": npl.panel_matvec,
+    "near_panel": npl.panel_matvec_fused,
     "otf_tile": otf.otf_leaf_tiles,
     "p2p_tile": p2p.p2p_leaf_tiles,
+    "panel_contract": npl.panel_contract,
 }
 #: top eigenvalue of the single-layer operator on the unit sphere; the
 #: chained matvecs are scaled by its inverse so they neither grow nor die
@@ -104,6 +114,26 @@ OTF_RHS_F32_LIMIT = {"G.1 (p=5)": 1e-6, "dGdn.1 (p=10)": 3e-5}
 #: rounding noise is as large as the 1e-5 residual it is asked for,
 #: takes 8 iterations and ends at 5.506e-3, relaxed or at fixed p=10
 OTF_FIRST_KIND_ERR_LIMIT = 7e-3
+
+#: the Stokes path: the reference program's operating point
+#: (examples/stokes_bem.py: K=4, K_fine=19, mu=1e-3, p=8, p_min=5,
+#: residual 1e-5, tiers default_p_tiers(8))
+STOKES_MU = 1e-3
+STOKES_P, STOKES_P_MIN = 8, 5
+#: limits of its two physical checks.  Both started from the 5e-2 the
+#: JAX package's own test accepts at 128 panels (tests/test_bem_stokes.py)
+#: and are set from readings on an NVIDIA H100 80GB HBM3 (700.00 W), f32:
+#: ``rhs_err`` 1.20e-4 at 32,768 panels and 9.2e-5 at 2,048 (order-8
+#: truncation, it does not fall with N); the drag error 1.35e-4 at 32,768
+#: panels, relaxed and at fixed p=8 alike, and 2.25e-3 at 2,048 (the flat
+#: panels' error, it falls with 1/N: the limit is for 32,768 panels and
+#: is scaled by 32,768 / n below that)
+STOKES_RHS_ERR_LIMIT = 5e-4
+STOKES_DRAG_ERR_LIMIT = 5e-4
+#: a host build (tree, lists, near entries) this long at 32,768 panels
+#: predicts more than two minutes at four times the panels: the larger
+#: sphere is then not run
+STOKES_REC8_HOST_BUDGET_S = 120.0
 
 DEV = torch.device("cuda")
 
@@ -349,18 +379,109 @@ def check_near_panel(panels, meta, nl_src, tol, label, time_it=False):
             lambda: npl.panel_matvec_reference(panels, meta, ql), 5
         )
         # yardstick: one library call on charges gathered beforehand
-        xq = torch.cat([ql, torch.zeros_like(ql[:1])])
-        xb = torch.nn.functional.pad(
-            xq[panels["pidx"].long()].reshape(C, -1),
-            (0, Lb - meta.m0 * meta.KS * meta.cdim),
-        )[:, :, None].contiguous()
+        xb = npl.chunk_charge_rows(panels, ql)[:, :, None].contiguous()
         rec["library_ms"] = gpu_ms(lambda: torch.bmm(A, xb), 10)
         rec["bound_ms"] = max(t_bytes, t_ops)
         rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         rec["store_bytes"] = C * KTr * Lb * esz
         rec["real_chunks"] = n_real
-        del xq, xb
+        del xb
     return rec
+
+
+def check_panel_contract(panels, meta, nl_src, tol, label, time_it=False):
+    """The panel_contract kernel against its plain version on the card,
+    on the chunk rows gathered from a seeded charge table, and the whole
+    two-stage route against the plain near-field product, twice (the
+    segment sums take no atomics: the bits must repeat).  The f32
+    tolerance is relative to the output's largest value: both sides add
+    a row's Lb products in another order.  Optionally timed beside its
+    plain version, ``torch.bmm``, its bound, the whole two-stage route
+    and the fused ``near_panel`` kernel on the same store."""
+    A = panels["A"]
+    C, KTr, Lb = A.shape
+    KSc = meta.KS * meta.cdim
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    ql = torch.randn((nl_src, KSc), generator=gen, dtype=A.dtype, device=DEV)
+    xb = npl.chunk_charge_rows(panels, ql)
+    got = npl.panel_contract(A, xb)
+    torch.cuda.synchronize()
+    want = npl.panel_contract_reference(A, xb)
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        fail(f"panel_contract[{label}]: bad output {tuple(got.shape)}")
+    max_abs = float((got - want).abs().max())
+    rel = max_abs / float(want.abs().max())
+    two = npl.panel_matvec_two_stage(panels, meta, ql)
+    again = npl.panel_matvec_two_stage(panels, meta, ql)
+    ref = npl.panel_matvec_reference(panels, meta, ql)
+    two_rel = float((two - ref).abs().max() / ref.abs().max())
+    n_real = int(panels["row_ptr"][-1])
+    rec = {
+        "kernel": "panel_contract", "case": label,
+        "dtype": str(A.dtype).replace("torch.", ""),
+        "A_shape": list(A.shape), "m0": meta.m0, "nl_t": meta.nl_t,
+        "rdim": meta.rdim, "cdim": meta.cdim,
+        "dummy_chunks": C - n_real, "pad_columns": Lb - meta.m0 * KSc,
+        "max_abs_err": max_abs, "rel_err": rel, "tol": tol,
+        "two_stage_rel_err": two_rel,
+        "two_stage_bit_equal": bool(torch.equal(two, again)),
+    }
+    if rel > tol or two_rel > tol or not rec["two_stage_bit_equal"]:
+        emit(rec)
+        fail(f"panel_contract[{label}]: kernel rel {rel:.3e}, two-stage "
+             f"route rel {two_rel:.3e} (limit {tol:.1e}), bit-equal "
+             f"{rec['two_stage_bit_equal']}")
+    if time_it:
+        # each input read once, the output written once; dummy chunks
+        # are computed like any other, so the whole store counts
+        arithmetic_bound(
+            rec, nbytes_of(A, xb, got), 2.0 * C * KTr * Lb, 0, A.dtype)
+        rec["ms"] = gpu_ms(lambda: npl.panel_contract(A, xb), 20)
+        rec["plain_ms"] = gpu_ms(
+            lambda: npl.panel_contract_reference(A, xb), 5)
+        x3 = xb[:, :, None].contiguous()
+        rec["library_ms"] = gpu_ms(lambda: torch.bmm(A, x3), 10)
+        del x3
+        rec["two_stage_ms"] = gpu_ms(
+            lambda: npl.panel_matvec_two_stage(panels, meta, ql), 20)
+        # the fused kernel has no size limit: the same store through it
+        # (gather, contraction and per-leaf sum in one launch)
+        fused = npl.panel_matvec_fused(panels, meta, ql)
+        rec["fused_near_panel_rel_err"] = float(
+            (fused - ref).abs().max() / ref.abs().max())
+        rec["fused_near_panel_ms"] = gpu_ms(
+            lambda: npl.panel_matvec_fused(panels, meta, ql), 20)
+        rec["store_bytes"] = nbytes_of(A)
+        rec["real_chunks"] = n_real
+        if rec["fused_near_panel_rel_err"] > tol:
+            emit(rec)
+            fail(f"near_panel on the store of [{label}] disagrees with "
+                 "the plain near-field product")
+    return rec
+
+
+def stokes_plan(recursions, dtype, ncrit=64, leaf_pad=64):
+    """``StokesBEMKernel`` plan on the unit sphere at the reference
+    program's operating point.  Returns (plan, fields, n, seconds of
+    the host's near-entry assembly inside the plan build)."""
+    fields = make_panels(unit_sphere(recursions), K=4)
+    kern = StokesBEMKernel(K=4, fine_K=19, mu=STOKES_MU)
+    timer = {"s": 0.0}
+    assemble = kern.near_values
+
+    def timed(*a):
+        t0 = time.time()
+        out = assemble(*a)
+        timer["s"] += time.time() - t0
+        return out
+
+    kern.near_values = timed
+    plan = fbt.FmmPlan(
+        kern, fields,
+        fbt.FMMConfig(ncrit=ncrit, dtype=dtype, max_p=10, leaf_pad=leaf_pad),
+        device=DEV,
+    )
+    return plan, fields, len(fields["xyz"]), timer["s"]
 
 
 def phase_env():
@@ -390,10 +511,12 @@ def point_plan(n, seed, dtype="float32", ncrit=64):
 
 
 def phase_kernels_small():
-    """Build the three kernels, then check each at f32 and f64 on a small
+    """Build the four kernels, then check each at f32 and f64 on a small
     problem with ragged leaves: near_panel (dummy chunks and dummy
     tiles), otf_tile (kappa 0 and 0.5, both BC flags) on a recursion-5
-    sphere, p2p_tile on 20,000 points."""
+    sphere, p2p_tile on 20,000 points, panel_contract and the two-stage
+    route on the scalar store of that sphere and on both 3x3-block
+    stores of a recursion-4 Stokes sphere."""
     t0 = time.time()
     _build.build(sorted(WRAPPERS))
     build_s = time.time() - t0
@@ -409,6 +532,23 @@ def phase_kernels_small():
         checks.append(check_near_panel(
             panels, meta, len(plan.leaf_ids), tol, "recursion5"
         ))
+        contract = [check_panel_contract(
+            panels, meta, len(plan.leaf_ids), tol, "recursion5_scalar"
+        )]
+        splan, _, _, _ = stokes_plan(4, dtype, ncrit=32, leaf_pad=None)
+        for bc, fh in (("bc0", None), ("bc1", splan._flipped_fields())):
+            spanels, smeta = splan.near_panels(fh)
+            contract.append(check_panel_contract(
+                spanels, smeta, len(splan.leaf_ids), tol,
+                f"stokes_recursion4_{bc}"
+            ))
+        if not any(c["dummy_chunks"] for c in contract) or not any(
+            c["pad_columns"] for c in contract
+        ):
+            fail("small panel_contract cases have no dummy chunk / no "
+                 "pad column")
+        checks.extend(contract)
+        del splan, spanels
         oplan, _ = build_plan(5, dtype, ncrit=32, leaf_pad=None,
                               near_mode="otf")
         ql, mask = leaf_charges(oplan, tdt)
@@ -561,7 +701,11 @@ def phase_profile(plan, charges, p=5, phase="profile"):
 
     # the matvec's phases, each alone, by CUDA events (before the
     # profiler is switched on)
-    q_t = torch.where(d["s_slot_mask"], x, 0.0)
+    cdim = getattr(plan.kernel, "charge_dim", 1)
+    if cdim > 1:
+        q_t = torch.where(d["s_slot_mask"][:, None], x.reshape(-1, cdim), 0.0)
+    else:
+        q_t = torch.where(d["s_slot_mask"], x, 0.0)
     M0 = plan._p2m_slots(d, aux, q_t, p)
     M = plan._phase_m2m(d, M0.clone())
     L0 = plan._phase_m2l(d, M, p)
@@ -871,7 +1015,7 @@ def path_points(npoints, nbase):
     if err_pot > 3 * base_err[0] or err_force > 3 * base_err[1]:
         fail(f"point errors {err_pot:.3e} / {err_force:.3e} above three "
              f"times the truncation error {base_err}")
-    if counts != {"near_panel": 0, "otf_tile": 0, "p2p_tile": 1}:
+    if counts != {**dict.fromkeys(WRAPPERS, 0), "p2p_tile": 1}:
         fail(f"one apply launched {counts}: the point path did not go "
              "through p2p_tile once, and no other kernel")
     phase_profile(plan, q, phase="points_profile")
@@ -881,14 +1025,196 @@ def path_points(npoints, nbase):
     )
 
 
+def stokes_solve(plan, fields, n, p_fixed=None):
+    """Uniform flow past the sphere: the single-layer system on
+    b = (4 pi, 0, 0), relaxed with the order floor and the tiers of the
+    reference program, or at the fixed order ``p_fixed``; the drag
+    sum(t_x * area) against Stokes' law 6 pi mu."""
+    b = np.tile([4.0 * np.pi, 0.0, 0.0], (n, 1)).reshape(-1)
+    cfg = fbt.SolverConfig(
+        residual=1e-5, max_iters=200, restart=200, max_p=STOKES_P,
+        p_min=STOKES_P_MIN, p_tiers=default_p_tiers(STOKES_P),
+    )
+    torch.cuda.synchronize()
+    t0 = time.time()
+    x, info, _ = solve_plan(plan, b, cfg, p_fixed=p_fixed)
+    solve_s = time.time() - t0
+    exact = 6.0 * np.pi * STOKES_MU
+    ok_shape = x.shape == (3 * n,) and bool(np.isfinite(x).all())
+    fx = float((x.reshape(n, 3)[:, 0] * fields["area"]).sum()) if ok_shape \
+        else float("nan")
+    return {
+        "solve_s": solve_s, "iterations": info.iterations,
+        "converged": bool(info.converged), "residual": info.residual,
+        "p_schedule": [int(h[2]) for h in info.history],
+        "finite_and_shaped": ok_shape,
+        "drag": fx, "drag_exact": exact, "drag_err": abs(fx - exact) / exact,
+    }
+
+
+def phase_stokes_path(plan, fields, n, chain, phase):
+    """The Stokes path through the entry points a user calls: the
+    right-hand side by ``apply_flipped_bc``, both solves by
+    ``solve_plan``, chained slot matvecs at the solve's order and at the
+    floor; the launches of ``panel_contract`` held against the matvecs
+    the plan ran."""
+    calls = {"matvecs": 0}
+    inner = plan._matvec_slots
+
+    def counted(*a, **k):
+        calls["matvecs"] += 1
+        return inner(*a, **k)
+
+    plan._matvec_slots = counted
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()  # every kernel count, just before the run
+
+    u = np.tile([1.0, 0.0, 0.0], (n, 1))
+    t0 = time.time()
+    rhs = plan.apply_flipped_bc(u, p=STOKES_P).cpu().numpy()
+    rhs_s = time.time() - t0
+    rhs_err = float(np.abs(rhs[:, 0] - 4 * np.pi).mean() / (4 * np.pi))
+
+    t0 = time.time()
+    mv, op4p, to_s, _, nslots = plan.solver_ops_slots()
+    op4p(STOKES_P)
+    torch.cuda.synchronize()
+    tables_s = time.time() - t0
+    relaxed = stokes_solve(plan, fields, n)
+    fixed = stokes_solve(plan, fields, n, p_fixed=STOKES_P)
+
+    matvec_ms = {}
+    for p in (STOKES_P, STOKES_P_MIN):
+        operand = op4p(p)
+        x = to_s(u)
+        for _ in range(2):
+            y = mv(operand, x, p)
+            x = y / torch.linalg.vector_norm(y)
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(chain):
+            y = mv(operand, x, p)
+            x = y / torch.linalg.vector_norm(y)
+        b.record()
+        torch.cuda.synchronize()
+        matvec_ms[f"p{p}"] = a.elapsed_time(b) / chain
+        if not torch.isfinite(x).all() or float(x.abs().max()) == 0.0:
+            fail("chained Stokes matvecs gave non-finite or zero values")
+
+    counts = launch_counts()  # ... and read just after it
+    plan._matvec_slots = inner
+    drag_limit = STOKES_DRAG_ERR_LIMIT * max(1.0, 32768 / n)
+    rec = {
+        "phase": phase, "n_panels": n, "unknowns": 3 * n, "nslots": nslots,
+        "p": STOKES_P, "p_min": STOKES_P_MIN, "mu": STOKES_MU,
+        "rhs_s": rhs_s, "tables_s": tables_s,
+        "rhs_err": rhs_err, "rhs_err_limit": STOKES_RHS_ERR_LIMIT,
+        "rhs_off_axis_max": float(np.abs(rhs[:, 1:]).max()),
+        "relaxed": relaxed, "fixed_p": fixed,
+        "drag_err_limit": drag_limit,
+        "matvec_ms": matvec_ms, "chain": chain,
+        "matvecs": calls["matvecs"], "kernel": "panel_contract",
+        "kernel_launches": counts["panel_contract"], "launch_counts": counts,
+        "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
+    }
+    emit(rec)
+    if rhs.shape != (n, 3) or not np.isfinite(rhs).all():
+        fail("the Stokes right-hand side is not finite values of shape [n, 3]")
+    if not rhs_err <= STOKES_RHS_ERR_LIMIT:
+        fail(f"rhs_err {rhs_err:.3e} above {STOKES_RHS_ERR_LIMIT:.0e}")
+    for name, sol in (("relaxed", relaxed), ("fixed p", fixed)):
+        if not (sol["converged"] and sol["finite_and_shaped"]):
+            fail(f"the {name} Stokes solve: {sol}")
+        if not sol["drag_err"] <= drag_limit:
+            fail(f"the {name} Stokes solve's drag error {sol['drag_err']:.3e}"
+                 f" above {drag_limit:.1e}")
+    if min(relaxed["p_schedule"]) < STOKES_P_MIN:
+        fail(f"an order below the floor: {relaxed['p_schedule']}")
+    others = sum(v for k, v in counts.items() if k != "panel_contract")
+    if counts["panel_contract"] == 0 or (
+        counts["panel_contract"] != calls["matvecs"]
+    ) or others:
+        fail(f"panel_contract launched {counts['panel_contract']} times in "
+             f"{calls['matvecs']} matvecs (all counts: {counts}): the "
+             "Stokes path did not go through its kernel, and no other, "
+             "once per matvec")
+    return rec
+
+
+def path_stokes(recursions, chain=20, prefix="stokes"):
+    """The Stokes path: plan build (near entries and panel packing timed
+    apart), the chunk-contraction kernel at the path's shapes, the
+    solves, the profile.  Returns (checks, kernels-line entry, seconds
+    of the host build)."""
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    plan, fields, n, near_entries_s = stokes_plan(recursions, "float32")
+    host_build_s = time.time() - t0
+    t0 = time.time()
+    panels, meta = plan.near_panels()
+    torch.cuda.synchronize()
+    store_s = time.time() - t0
+    t0 = time.time()
+    plan.near_panels(plan._flipped_fields())
+    torch.cuda.synchronize()
+    store_flipped_s = time.time() - t0
+    C, KTr, Lb = panels["A"].shape
+    emit_plan_build(
+        f"{prefix}_plan_build", plan, n, host_build_s,
+        near_entries_s=near_entries_s, near_entries=int(len(plan.near_rows)),
+        near_store_s=store_s, near_store_flipped_s=store_flipped_s,
+        near_store_bytes=nbytes_of(panels["A"]), chunks=C,
+        real_chunks=int(panels["row_ptr"][-1]), m0=meta.m0, KTr=KTr, Lb=Lb,
+        block_rows=meta.block_rows, route=npl.near_route(meta),
+    )
+    nl = len(plan.leaf_ids)
+    full = check_panel_contract(
+        panels, meta, nl, 1e-5, f"{prefix}_path", time_it=True)
+    panels64 = dict(panels, A=panels["A"].double())
+    full64 = check_panel_contract(panels64, meta, nl, 1e-12, f"{prefix}_path")
+    del panels64
+    torch.cuda.empty_cache()
+    main_rec = phase_stokes_path(plan, fields, n, chain, f"{prefix}_path")
+    u = np.tile([1.0, 0.0, 0.0], (n, 1)).astype(np.float32)
+    phase_profile(plan, u, p=STOKES_P, phase=f"{prefix}_profile")
+    phase_profile(plan, u, p=STOKES_P_MIN, phase=f"{prefix}_profile_p5")
+    return [full, full64], kernel_entry(
+        "panel_contract", "fmm_bem_tpu/ops/near_panel.py:626", full,
+        main_rec["kernel_launches"],
+    ), host_build_s
+
+
+def path_stokes_both(recursions, try_larger):
+    """The Stokes path, and the next recursion as well where the host
+    build measured here says it would take under two minutes."""
+    checks, entry, host_build_s = path_stokes(recursions)
+    predicted = 4.0 * host_build_s
+    ran = try_larger and predicted < STOKES_REC8_HOST_BUDGET_S
+    if try_larger:
+        emit({
+            "phase": "stokes_larger", "recursions": recursions + 1,
+            "ran": ran, "host_build_s_here": host_build_s,
+            "predicted_host_build_s": predicted,
+            "budget_s": STOKES_REC8_HOST_BUDGET_S,
+        })
+    if ran:
+        more, _, _ = path_stokes(recursions + 1, prefix="stokes_larger")
+        checks = checks + more
+    return checks, entry
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
                     help="every path at a small size")
     args = ap.parse_args()
     recursions, otf_recursions, npoints, nbase = 8, 9, 1_000_000, 32768
+    stokes_recursions = 7
     if args.quick:
         recursions, otf_recursions, npoints, nbase = 6, 6, 50_000, 8192
+        stokes_recursions = 5
 
     env = phase_env()
     build_s, checks = phase_kernels_small()
@@ -901,16 +1227,19 @@ def main():
         "checks": checks,
     })
 
+    paths = {
+        "cached": lambda: path_cached(recursions),
+        "otf": lambda: path_otf(otf_recursions),
+        "points": lambda: path_points(npoints, nbase),
+        "stokes": lambda: path_stokes_both(stokes_recursions, not args.quick),
+    }
     entries = []
-    for run in (
-        lambda: path_cached(recursions),
-        lambda: path_otf(otf_recursions),
-        lambda: path_points(npoints, nbase),
-    ):
-        path_checks, entry = run()
+    for drive in paths.values():
+        t0 = time.time()
+        path_checks, entry = drive()
         emit({"phase": "kernels", "kernel": entry["name"],
               "checks": path_checks,
-              "launches_per_matvec": 1})
+              "launches_per_matvec": 1, "path_s": time.time() - t0})
         entries.append(entry)
 
     emit({"kernels": entries})

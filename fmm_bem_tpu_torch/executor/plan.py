@@ -15,17 +15,27 @@ ops on the plan's device:
     L2L   octant-class matmuls per level, top-down
     L2P   slot-ordered linear table contracted with the leaf locals
     M2P   fallback for level-skewed pairs
-    near  BEM kernels: the cached leaf-panel store (ops/near_panel.py)
-          or, with ``near_mode="otf"``, the regular quadrature
-          recomputed per matvec (ops/otf_tile.py) plus a small cached
-          store of near-singular correction deltas; point kernels: the
-          direct leaf-pair P2P (ops/p2p_tile.py).  Each of the three is
-          a hand-written CUDA kernel on the GPU and its plain version
-          on the CPU.
+    near  BEM kernels: the cached leaf-panel store (ops/near_panel.py:
+          the fused kernel for scalar entries, the two-stage route
+          through the chunk-contraction kernel for the 3x3 blocks of
+          Stokes BEM) or, with ``near_mode="otf"``, the regular
+          quadrature recomputed per matvec (ops/otf_tile.py) plus a
+          small cached store of near-singular correction deltas; point
+          kernels: the direct leaf-pair P2P (ops/p2p_tile.py for the
+          Laplace tile math, the kernel's own ``p2p_block`` otherwise).
+          Each of the four hand-written CUDA kernels runs on the GPU
+          and its plain version on the CPU.
 
 The port covers the single-tree FMM in the SLOT layout: charges and
-results live in padded leaf tiles end to end.  What it does not cover
-raises ``NotImplementedError`` at plan build.
+results live in padded leaf tiles end to end, scalar (Laplace BEM,
+point Laplace) or vector-valued (Stokes BEM with 3-vector charges and
+results, the point stokeslet): a kernel with ``charge_dim = c > 1``
+sees its charges as ``[n, c]`` and the solver vector as the flattened
+``[n*c]`` layout.  What the port does not cover raises
+``NotImplementedError`` at plan build: ``target_fields``, the treecode
+evaluator, the near-field-only operators, ``near_panel=False``, a BEM
+kernel whose result and charge dimensions differ, and kernels without a
+linear P2M (the stresslet).
 
 The relaxation hook (``K.set_p(p)`` in the reference, GMRES.hpp:195-196)
 is an argument: every degree-ordered term dimension is prefix-sliced to
@@ -339,11 +349,11 @@ def _check_supported(kernel, config, target_fields):
     sparse = getattr(kernel, "near_sparse", False)
     if sparse and not config.near_panel:
         no("near_panel=False (COO near-field replay)")
-    if getattr(kernel, "charge_dim", 1) != 1 or (
-        sparse and getattr(kernel, "result_dim", 1) != 1
+    if sparse and getattr(kernel, "charge_dim", 1) != getattr(
+        kernel, "result_dim", 1
     ):
-        no("a vector-valued BEM kernel (charge_dim > 1, or result_dim > 1 "
-           "with near_sparse)")
+        no("a vector-valued BEM kernel whose result_dim differs from its "
+           "charge_dim")
     if not getattr(kernel, "linear_p2m", True):
         no("a kernel without a linear P2M table")
 
@@ -1436,17 +1446,28 @@ class FmmPlan:
         fcache = self._p2m_tab_cache
         if full_key not in fcache:
             n = self.src.tree.num_bodies
-            fcache[full_key] = kern.p2m(
-                self.device_fields(sfh),
-                torch.ones(n, dtype=self.dtype, device=self.device),
-                self._tensor(self.src.body_dnorm),
-                self._tensor(self.src.body_inv_sigma),
-                pmax,
-            )  # [n, ncomp, Wmax]
+            cdim = getattr(kern, "charge_dim", 1)
+            sfd = self.device_fields(sfh)
+            dn = self._tensor(self.src.body_dnorm)
+            isig = self._tensor(self.src.body_inv_sigma)
+            if cdim == 1:
+                q1 = torch.ones(n, dtype=self.dtype, device=self.device)
+                tab = kern.p2m(sfd, q1, dn, isig, pmax)  # [n, ncomp, Wmax]
+            else:
+                # one unit-charge evaluation per charge component
+                cols = []
+                for c in range(cdim):
+                    e = torch.zeros(
+                        (n, cdim), dtype=self.dtype, device=self.device
+                    )
+                    e[:, c] = 1.0
+                    cols.append(kern.p2m(sfd, e, dn, isig, pmax))
+                tab = torch.stack(cols)  # [cdim, n, ncomp, Wmax]
+            fcache[full_key] = tab
             if len(fcache) > 4:
                 fcache.pop(next(iter(fcache)))
-        t3 = fcache[full_key][..., :W]
-        aux["p2m_tab"] = t3.reshape(t3.shape[0], -1)
+        t3 = fcache[full_key][..., :W]  # [(cdim,) n, ncomp, W]
+        aux["p2m_tab"] = t3.reshape(t3.shape[:-2] + (-1,))
         if callable(getattr(kern, "l2p_table", None)):
             lcache = self._l2p_tab_cache
             if full_key not in lcache:
@@ -1471,7 +1492,8 @@ class FmmPlan:
         into the padded leaf-tile ordering, so the per-iteration matvec
         does no body-index gathers at all.
 
-        Layouts: k-major P2M ``[K, nl, cW]`` and w-major L2P
+        Layouts: k-major P2M ``[K, nl, cW]`` (``[cdim, K, nl, cW]`` for
+        a kernel with vector charges) and w-major L2P
         ``[rdim, cW, nl, K]`` — the contraction axis leads.  A kernel
         without ``l2p_table`` gets its field rows, normalised offsets
         and scales in slot order instead."""
@@ -1492,11 +1514,18 @@ class FmmPlan:
         t_idx = self._index(self.tgt.leaf_body_idx.reshape(-1))
         t_msk = self._tensor(self.tgt.leaf_body_mask.reshape(-1), torch.bool)
 
-        tab = aux["p2m_tab"]  # [n, cW]
-        g = tab[s_idx] * s_msk[:, None].to(tab.dtype)
-        aux["p2m_tab_t"] = (
-            g.reshape(nl_s, K_s, -1).permute(1, 0, 2).contiguous()
-        )
+        tab = aux["p2m_tab"]  # [n, cW] or [cdim, n, cW]
+        g = tab[..., s_idx, :] * s_msk[:, None].to(tab.dtype)
+        if tab.ndim == 2:
+            aux["p2m_tab_t"] = (
+                g.reshape(nl_s, K_s, -1).permute(1, 0, 2).contiguous()
+            )
+        else:
+            aux["p2m_tab_t"] = (
+                g.reshape(tab.shape[0], nl_s, K_s, -1)
+                .permute(0, 2, 1, 3)
+                .contiguous()
+            )
         if "l2p_tab" in aux:
             tab = aux["l2p_tab"]  # [n, cW, rdim]
             g = tab[t_idx] * t_msk[:, None, None].to(tab.dtype)
@@ -1552,12 +1581,20 @@ class FmmPlan:
         - L2P broadcasts each leaf's local expansion over its tile.
 
         Padded slots stay exactly zero through every phase, so solver
-        dot products and norms need no masking.  Returns [nl*K, rdim].
+        dot products and norms need no masking.  ``q_t`` holds
+        ``nl*K*cdim`` charges (slot-major, the charge components of a
+        slot adjacent).  Returns [nl*K, rdim].
         """
+        cdim = getattr(self.kernel, "charge_dim", 1)
         nl_s, K_s = len(self.src.leaf_ids), self.src.leaf_pad
         nl_t, K_t = len(self.tgt.leaf_ids), self.tgt.leaf_pad
 
-        q_t = torch.where(d["s_slot_mask"], q_t.reshape(nl_s * K_s), 0.0)
+        if cdim > 1:
+            q_t = torch.where(
+                d["s_slot_mask"][:, None], q_t.reshape(nl_s * K_s, cdim), 0.0
+            )
+        else:
+            q_t = torch.where(d["s_slot_mask"], q_t.reshape(nl_s * K_s), 0.0)
 
         M = self._p2m_slots(d, aux, q_t, p)
         M = self._phase_m2m(d, M)
@@ -1576,16 +1613,20 @@ class FmmPlan:
 
     def _p2m_slots(self, d, aux, q_t, p):
         """Slot-space P2M (ref EvalInteractionLazy.hpp:254-260 role):
-        k-major table [K, nl, cW] contracted against the [K, nl]
-        charge tile, then one row write of the nl leaf expansions into
+        k-major table [(cdim,) K, nl, cW] contracted against the
+        charge tiles, then one row write of the nl leaf expansions into
         the box table."""
         st = self.src.tree
         nl_s, K_s = len(self.src.leaf_ids), self.src.leaf_pad
         tabk = aux["p2m_tab_t"]
-        qk = q_t.reshape(nl_s, K_s).T
-        contrib = torch.einsum("knw,kn->nw", tabk, qk)
+        if tabk.ndim == 3:
+            qk = q_t.reshape(nl_s, K_s).T
+            contrib = torch.einsum("knw,kn->nw", tabk, qk)
+        else:
+            qk = q_t.reshape(nl_s, K_s, tabk.shape[0])
+            contrib = torch.einsum("nkc,cknw->nw", qk, tabk)
         M = torch.zeros(
-            (st.num_boxes, tabk.shape[2]), dtype=tabk.dtype,
+            (st.num_boxes, tabk.shape[-1]), dtype=tabk.dtype,
             device=tabk.device,
         )
         M[d["s_leaf_ids"]] = contrib
@@ -1596,7 +1637,7 @@ class FmmPlan:
         panel contraction's native shape, zero index moves."""
         nl_s, K_s = len(self.src.leaf_ids), self.src.leaf_pad
         nl_t, K_t = len(self.tgt.leaf_ids), self.tgt.leaf_pad
-        ql = q_t.reshape(nl_s, K_s)
+        ql = q_t.reshape(nl_s, K_s * getattr(self.kernel, "charge_dim", 1))
         if "otf_tiles" in aux["panels"]:
             out_leaf = self._near_otf_core(aux["panels"], ql)
         else:
@@ -1754,7 +1795,8 @@ class FmmPlan:
     def _p2p_pass(self, d, sfields, tfields, q_t, nl, K):
         """Direct P2P over the near leaf pairs of a point kernel.
         ``q_t`` holds the per-source-leaf charge tiles (flat [nl_s*K_s],
-        padded slots already zeroed).  Kernels with the Laplace tile
+        or [nl_s*K_s, cdim] for vector charges; padded slots already
+        zeroed).  Kernels with the Laplace tile
         math go through ops/p2p_tile.py; any other point kernel runs
         its own ``p2p_block`` batched over chunks of pairs.  Returns
         [nl*K, rdim] with padded slots zero."""
@@ -1765,7 +1807,10 @@ class FmmPlan:
         sidx, tidx = d["s_leaf_body_idx"], d["t_leaf_body_idx"]
         lt_s = {k: v[sidx] for k, v in sfields.items()}
         lt_t = {k: v[tidx] for k, v in tfields.items()}
-        qt = q_t.reshape(-1, self.src.leaf_pad)
+        cdim = getattr(kern, "charge_dim", 1)
+        qt = q_t.reshape(
+            (-1, self.src.leaf_pad) + ((cdim,) if cdim > 1 else ())
+        )
         block = torch.vmap(kern.p2p_block)
         seg = torch.zeros(
             (nl, K, kern.result_dim), dtype=q_t.dtype, device=q_t.device
@@ -1809,25 +1854,37 @@ class FmmPlan:
         with ``matvec(operand, x_slot, p) -> A @ x_slot``,
         ``operand_for_p(p)`` the per-order device tables, and
         ``to_slots(x_user) -> x_slot`` / ``from_slots(r_slot) ->
-        r_user`` the one-time solve entry/exit conversions.
+        r_user`` the one-time solve entry/exit conversions.  A
+        vector-valued kernel (Stokes, ``charge_dim = result_dim = c``)
+        sees the solver vector as the flattened ``[n*c]`` layout (ref
+        GMRES_Stokes.hpp VecToArray/ArrayToVec :85-110), ``nslots`` is
+        ``nl*K*c``.
 
         ``flipped=True`` applies the BC-flipped operator (the
         reference's switch_BC system matrix, LaplaceBEM.cpp:218-232).
         Returns ``None`` when charge and result dimensions differ (a
         point kernel with forces is no square operator to solve with).
         """
-        if getattr(self.kernel, "charge_dim", 1) != self.kernel.result_dim:
+        rdim = self.kernel.result_dim
+        if getattr(self.kernel, "charge_dim", 1) != rdim:
             return None
         sfh = self._flipped_fields() if flipped else None
         mv, op4p, to_s, from_s, nslots = self._slot_ops(sfh)
+
+        def flat(r):
+            return r[:, 0] if rdim == 1 else r.reshape(-1)
+
         return (
-            lambda operand, x, p: mv(operand, x, p)[:, 0],
-            op4p, to_s, lambda rt: from_s(rt)[:, 0], nslots,
+            lambda operand, x, p: flat(mv(operand, x, p)),
+            op4p, to_s, lambda rt: flat(from_s(rt)), nslots,
         )
 
     def _slot_ops(self, fields_host):
         """The slot-space operator with full result rows:
-        ``matvec -> [nslots, rdim]``, ``from_slots -> [n, rdim]``."""
+        ``matvec -> [nl*K, rdim]``, ``from_slots -> [n, rdim]``;
+        ``to_slots`` takes ``[n]`` (``[n, cdim]`` or its flattening for
+        vector charges) and gives the flat ``[nl*K*cdim]`` slot vector."""
+        cdim = getattr(self.kernel, "charge_dim", 1)
         nl_s, K_s = len(self.src.leaf_ids), self.src.leaf_pad
         n = self.src.tree.num_bodies
         sf = self.device_fields(fields_host)
@@ -1865,18 +1922,22 @@ class FmmPlan:
                 np.array(xu) if isinstance(xu, np.ndarray) else xu,
                 dtype=self.dtype, device=self.device,
             )
+            if cdim > 1:
+                g = xu.reshape(n, cdim)[slot_user]
+                return torch.where(smask[:, None], g, 0.0).reshape(-1)
             return torch.where(smask, xu.reshape(n)[slot_user], 0.0)
 
         def from_slots(rt):
             return rt.reshape(-1, self.kernel.result_dim)[user_slot]
 
-        return matvec, operand_for_p, to_slots, from_slots, nl_s * K_s
+        return matvec, operand_for_p, to_slots, from_slots, nl_s * K_s * cdim
 
     def apply(self, charges, p=None, fields=None):
         """One FMM matvec at truncation order ``p`` (ref
         FMM_plan::execute, FMM_plan.hpp:75-90 + the set_p relaxation
-        hook): charges [n] in user order -> result [n, rdim] tensor on
-        the plan's device, through the slot-space matvec.
+        hook): charges [n] (or [n, cdim]) in user order -> result
+        [n, rdim] tensor on the plan's device, through the slot-space
+        matvec.
 
         ``fields`` overrides the per-panel arrays at call time (already
         in Morton order) — e.g. flipped BC flags to evaluate the RHS
@@ -1909,10 +1970,13 @@ class FmmPlan:
             hi = max(mid + 1, pmax - 1)
             ps = sorted({lo, mid, hi})
         ps = [p for p in ps if p < pmax]
+        cdim = getattr(self.kernel, "charge_dim", 1)
         n = self.src.tree.num_bodies
         if q is None:
             rng = np.random.default_rng(seed)
-            q = rng.choice([-1.0, 1.0], size=(n,))
+            q = rng.choice(
+                [-1.0, 1.0], size=(n,) if cdim == 1 else (n, cdim)
+            )
         ref = self.apply(q, p=pmax).cpu().numpy()
         rnorm = float(np.linalg.norm(ref))
         eps = {}

@@ -14,10 +14,24 @@ touches the panel bytes exactly once: it is bound by the device-memory
 rate.  Chunks are sorted by target leaf, so a row pointer over
 ``chunk_tgt`` gives each leaf a contiguous chunk range.
 
-On CUDA tensors the product runs as the hand-written kernel of
-``csrc/near_panel.cu`` (gather of the charge tiles, contraction and the
-per-leaf reduction in one pass); on CPU tensors it runs as the plain
-PyTorch version ``panel_matvec_reference``.
+The product has two routes, picked by ``near_route`` from the store's
+entry shape alone, on CPU and CUDA tensors alike:
+
+- ``"fused"`` (scalar entries, ``rdim * cdim == 1``: Laplace and Yukawa
+  BEM): ``panel_matvec_fused``.  On CUDA tensors one hand-written
+  kernel, ``csrc/near_panel.cu``, gathers the charge tiles, contracts
+  and reduces per leaf in one pass; on CPU tensors the plain PyTorch
+  version ``panel_matvec_reference`` runs.
+- ``"two_stage"`` (matrix entries, ``rdim * cdim > 1``: Stokes BEM):
+  ``panel_matvec_two_stage``.  The charge tiles are gathered into chunk
+  rows ``[Cpad, Lb]`` by plain tensor ops, ``panel_contract`` computes
+  ``out[c] = A[c] @ x[c]`` for every chunk (on CUDA tensors the
+  hand-written kernel ``csrc/panel_contract.cu``, on CPU tensors the
+  plain version ``panel_contract_reference``), and the leaf-sorted chunk
+  rows are summed per leaf by segments (no atomics: the bits repeat).
+
+Neither wrapper gives way to its plain version on a CUDA tensor: it
+launches its kernel or raises.
 
 ``m0`` is chosen per plan to minimise padded bytes (see choose_m0).  The
 store layout (``Lb`` rounded up to 128 columns, ``Cpad`` rounded up to
@@ -496,8 +510,115 @@ def _kernel_fn(dtype):
     return fn
 
 
+def panel_contract_reference(A, xb):
+    """Plain PyTorch version of the chunk contraction:
+    ``out[c, t] = sum_s A[c, t, s] * xb[c, s]``."""
+    return torch.einsum("lts,ls->lt", A, xb)
+
+
+def _contract_fn(dtype):
+    from fmm_bem_tpu_torch.ops import _build
+
+    lib = _build.load("panel_contract")
+    fn = (
+        lib.panel_contract_f32 if dtype == torch.float32
+        else lib.panel_contract_f64
+    )
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def panel_contract(A, xb):
+    """Chunk contraction ``out[c] = A[c] @ xb[c]`` of a panel store.
+
+    A : [Cpad, KTr, Lb] chunk panels; xb : [Cpad, Lb] gathered charge
+    rows (zero beyond ``m0 * KSc`` and in dummy chunks).
+    Returns [Cpad, KTr], every row computed (dummies give zeros).
+
+    Tensors on the CPU take the plain version; CUDA tensors launch the
+    hand-written kernel (and only there is ``panel_contract.launches``
+    incremented) or raise.
+    """
+    if A.device.type == "cpu":
+        return panel_contract_reference(A, xb)
+    if A.device.type != "cuda":
+        raise RuntimeError(f"panel_contract: unsupported device {A.device}")
+    if A.dtype not in (torch.float32, torch.float64) or xb.dtype != A.dtype:
+        raise TypeError(
+            f"panel_contract: A {A.dtype} / xb {xb.dtype} must both be "
+            "float32 or both float64"
+        )
+    if xb.device != A.device:
+        raise RuntimeError(
+            f"panel_contract: xb on {xb.device}, A on {A.device}"
+        )
+    for name, t in (("A", A), ("xb", xb)):
+        if not t.is_contiguous():
+            raise ValueError(f"panel_contract: {name} must be contiguous")
+    if A.ndim != 3 or xb.shape != (A.shape[0], A.shape[2]) \
+            or A.shape[2] % 128 != 0:
+        raise ValueError(
+            f"panel_contract: shapes A {tuple(A.shape)} xb "
+            f"{tuple(xb.shape)} do not fit [C, KTr, Lb] x [C, Lb] with "
+            "Lb a multiple of 128"
+        )
+    C, KTr, Lb = A.shape
+    out = torch.empty((C, KTr), dtype=A.dtype, device=A.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(A.device):
+        err = _contract_fn(A.dtype)(
+            A.data_ptr(), xb.data_ptr(), out.data_ptr(), C, KTr, Lb,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    panel_contract.launches += 1
+    if err != 0:
+        raise RuntimeError(
+            f"panel_contract kernel launch failed: CUDA error {err}"
+        )
+    return out
+
+
+#: number of kernel launches made by ``panel_contract`` in this process
+panel_contract.launches = 0
+
+
+def chunk_charge_rows(panels, ql):
+    """The chunk rows ``[Cpad, Lb]`` of the two-stage route: the ``m0``
+    charge tiles of every chunk gathered by ``pidx`` (a dummy
+    ``pidx == nl_src`` reads an appended zero tile), zero in the columns
+    ``m0 * KSc .. Lb``."""
+    C, _, Lb = panels["A"].shape
+    xq = torch.cat([ql, torch.zeros_like(ql[:1])], dim=0)
+    xb = xq[panels["pidx"].long()].reshape(C, -1)
+    return torch.nn.functional.pad(xb, (0, Lb - xb.shape[1])).contiguous()
+
+
+def panel_matvec_two_stage(panels, meta, ql):
+    """Near-field product by the two-stage route: gather the charge
+    tiles of every chunk into a row (``chunk_charge_rows``), contract
+    every chunk with its panel (``panel_contract``), and sum each
+    leaf's chunk rows through the row pointer over the leaf-sorted
+    chunks.  The sum is taken segment by segment, without atomics, so
+    it gives the same bits on every run; leaves without chunks get 0
+    and dummy chunks (past ``row_ptr[-1]``) belong to no segment.
+    Same arguments and result as ``panel_matvec``."""
+    out = panel_contract(panels["A"], chunk_charge_rows(panels, ql))
+    return torch.segment_reduce(
+        out, "sum", offsets=panels["row_ptr"], axis=0
+    )
+
+
+def near_route(meta):
+    """Which route a store takes: matrix entries (``rdim * cdim > 1``,
+    Stokes BEM) the two-stage one, scalar entries the fused kernel."""
+    return "two_stage" if meta.rdim * meta.cdim > 1 else "fused"
+
+
 def panel_matvec(panels, meta, ql):
-    """Near-field product from leaf-tiled charges.
+    """Near-field product from leaf-tiled charges, by the store's route
+    (``near_route``).
 
     Parameters
     ----------
@@ -507,10 +628,19 @@ def panel_matvec(panels, meta, ql):
     meta : the NearPanels (static chunk shapes).
     ql : [nl_src, KS*cdim] masked per-source-leaf charge tiles.
     Returns [nl_t, KT*rdim] leaf result tiles in leaf-slot order.
+    """
+    if near_route(meta) == "two_stage":
+        return panel_matvec_two_stage(panels, meta, ql)
+    return panel_matvec_fused(panels, meta, ql)
+
+
+def panel_matvec_fused(panels, meta, ql):
+    """Near-field product by the fused route.  Same arguments and
+    result as ``panel_matvec``.
 
     Tensors on the CPU take the plain version; CUDA tensors launch the
-    hand-written kernel (and only there is ``panel_matvec.launches``
-    incremented) or raise.
+    hand-written kernel (and only there is
+    ``panel_matvec_fused.launches`` incremented) or raise.
     """
     if ql.device.type == "cpu":
         return panel_matvec_reference(panels, meta, ql)
@@ -553,7 +683,7 @@ def panel_matvec(panels, meta, ql):
             ql.data_ptr(), out.data_ptr(), meta.nl_t, KTr, Lb, m0, KSc,
             ql.shape[0], torch.cuda.current_stream().cuda_stream,
         )
-    panel_matvec.launches += 1
+    panel_matvec_fused.launches += 1
     if err != 0:
         raise RuntimeError(
             f"near_panel kernel launch failed: CUDA error {err}"
@@ -561,5 +691,5 @@ def panel_matvec(panels, meta, ql):
     return out
 
 
-#: number of kernel launches made by ``panel_matvec`` in this process
-panel_matvec.launches = 0
+#: number of kernel launches made by ``panel_matvec_fused`` in this process
+panel_matvec_fused.launches = 0

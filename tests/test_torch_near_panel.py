@@ -215,9 +215,9 @@ def test_panel_matvec_plain_version(plans, flipped):
     assert (ct == tmeta.nl_t).any() and (pidx == nl).any()
     ql = np.random.default_rng(4).standard_normal((nl, tp.leaf_pad))
     want = jnp_mod.panel_matvec(jdev, jmeta, jnp.asarray(ql), use_pallas=False)
-    before = tnp_mod.panel_matvec.launches
+    before = tnp_mod.panel_matvec_fused.launches
     got = tnp_mod.panel_matvec(tdev, tmeta, torch.as_tensor(ql))
-    assert tnp_mod.panel_matvec.launches == before  # no kernel on the CPU
+    assert tnp_mod.panel_matvec_fused.launches == before  # no kernel on the CPU
     close(got, want)
     close(tnp_mod.panel_matvec_reference(tdev, tmeta, torch.as_tensor(ql)), want)
 
