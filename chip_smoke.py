@@ -135,6 +135,14 @@ STOKES_DRAG_ERR_LIMIT = 5e-4
 #: sphere is then not run
 STOKES_REC8_HOST_BUDGET_S = 120.0
 
+#: each kernel's time at its path's shapes in PERF.md's table before its
+#: last redesign (near_panel, otf_tile and p2p_tile from run C,
+#: panel_contract from run G; f32, NVIDIA H100 80GB HBM3 at 700.00 W),
+#: timed then one synchronised call at a time.  Printed on a line of its
+#: own for the reader to set beside this run's times: not measured here
+PREVIOUS_MS = {"near_panel": 0.490, "panel_contract": 0.885,
+               "otf_tile": 3.086, "p2p_tile": 3.115}
+
 DEV = torch.device("cuda")
 
 
@@ -147,26 +155,30 @@ def fail(msg):
     sys.exit(1)
 
 
-def gpu_ms(fn, reps, warmup=2):
-    """Median milliseconds of ``fn()`` on the card, by CUDA events."""
+def gpu_ms(fn, reps, warmup=2, batches=3):
+    """Milliseconds per call of ``fn()`` on the card, by CUDA events: the
+    median over ``batches`` of ``reps`` calls enqueued back to back
+    between two events, so that the device time is timed and not the
+    host's launch of each call."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(batches):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
 
 
-def nvidia_smi_line():
+def nvidia_smi_line(fields="name,power.limit"):
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
@@ -182,11 +194,11 @@ def launch_counts():
 
 
 def build_plan(recursions, dtype, ncrit=64, leaf_pad=64, near_mode="cached",
-               fields=None):
+               fields=None, K=3):
     if fields is None:
-        fields = make_panels(unit_sphere(recursions), K=3)
+        fields = make_panels(unit_sphere(recursions), K=K)
     plan = fbt.FmmPlan(
-        LaplaceBEMKernel(K=3), fields,
+        LaplaceBEMKernel(K=K), fields,
         fbt.FMMConfig(ncrit=ncrit, dtype=dtype, max_p=10, leaf_pad=leaf_pad,
                       near_mode=near_mode),
         device=DEV,
@@ -251,44 +263,108 @@ def nbytes_of(*tensors):
 
 def check_otf_tile(plan, ot, ql, kappa, tol, label, time_it=False):
     """The otf_tile kernel against its plain version on the card.  The
-    f32 tolerance is stated relative to the output's largest value: the
-    kernel inverts r with rsqrtf (2 ulp) where the plain version takes
-    sqrt and divides, and the two add a leaf's K * KQ * pairs terms in
-    another order; f64 differs by the order of the sums alone."""
-    args = (ot["sb_src"], ql, ot["sb_tgt"], ot["row_ptr"], ot["sslot"],
-            plan._otf_KQ)
-    got = otf.otf_leaf_tiles(*args, kappa=kappa)
+    kernel reads the count tables of ``ot``; the plain version is given
+    none and masks by the sentinel, so the two also hold the tables to
+    the tiles.  Padded target slots and target leaves without pairs
+    must come out exactly 0.  The f32 tolerance is stated relative to
+    the output's largest value: the kernel inverts r with rsqrtf (2 ulp)
+    where the plain version takes sqrt and divides, and the two add a
+    leaf's K * KQ * pairs terms in another order; f64 differs by the
+    order of the sums alone."""
+    KQ = (ot["sb_src"].shape[1] - 3) // 4
+    args = (ot["sb_src"], ql, ot["sb_tgt"], ot["row_ptr"], ot["sslot"], KQ)
+    got = otf.otf_leaf_tiles(*args, kappa=kappa, src_cnt=ot["src_cnt"],
+                             tgt_cnt=ot["tgt_cnt"])
     torch.cuda.synchronize()
     want = otf.otf_leaf_tiles_reference(*args, kappa=kappa)
     if got.shape != want.shape or not torch.isfinite(got).all():
         fail(f"otf_tile[{label}]: bad output {tuple(got.shape)} "
              "(every element must be finite, padded slots included)")
+    nl_t, K = got.shape
+    real = torch.arange(K, device=DEV) < ot["tgt_cnt"][:nl_t, None]
+    no_pairs = ot["row_ptr"][1:] == ot["row_ptr"][:-1]
+    zeros_exact = bool((got[~real] == 0).all() and (got[no_pairs] == 0).all())
     max_abs = float((got - want).abs().max())
     rel = max_abs / float(want.abs().max())
     rec = {
         "kernel": "otf_tile", "case": label,
         "dtype": str(ql.dtype).replace("torch.", ""), "kappa": kappa,
-        "tiles": list(ot["sb_src"].shape), "near_pairs": len(plan.p2p_src_slot),
+        "tiles": list(ot["sb_src"].shape), "near_pairs": len(ot["sslot"]),
         "max_abs_err": max_abs, "rel_err": rel, "tol": tol,
-        "all_finite": True,
+        "all_finite": True, "padded_and_pairless_exact_zero": zeros_exact,
     }
-    if rel > tol:
+    if rel > tol or not zeros_exact:
         emit(rec)
         fail(f"otf_tile[{label}] disagrees with its plain version: "
-             f"rel {rel:.3e} > {tol:.1e}")
+             f"rel {rel:.3e} > {tol:.1e}, exact zeros {zeros_exact}")
     if time_it:
         evals, flops, sfu, evals_dg = otf_needed_work(
             plan, ot["sb_tgt"], kappa)
-        if evals != pair_evaluations(plan) * plan._otf_KQ:
+        if evals != pair_evaluations(plan) * KQ:
             fail("the target table's real slots are not the plan's bodies")
-        arithmetic_bound(rec, nbytes_of(*args[:5], got), flops, sfu, ql.dtype)
+        # what the kernel's loops run, worked out on the host from the
+        # count tables it reads: real targets x staged real panels
+        tslot = torch.repeat_interleave(
+            torch.arange(nl_t, device=DEV),
+            (ot["row_ptr"][1:] - ot["row_ptr"][:-1]).long())
+        walked = KQ * int((ot["tgt_cnt"][tslot].long()
+                           * ot["src_cnt"][ot["sslot"].long()].long()).sum())
+        counts = (ot["src_cnt"], ot["tgt_cnt"])
+        arithmetic_bound(rec, nbytes_of(*args[:5], *counts, got), flops, sfu,
+                         ql.dtype)
         rec["kernel_evaluations"] = evals
         rec["kernel_evaluations_dG"] = evals_dg
-        rec["ms"] = gpu_ms(lambda: otf.otf_leaf_tiles(*args, kappa=kappa), 10)
+        rec["evaluations_walked_from_count_tables"] = walked
+        rec["evaluations_walked_before_from_tile_shape"] = (
+            len(ot["sslot"]) * K * K * KQ)  # every slot: the first design
+        if walked != evals:
+            emit(rec)
+            fail(f"otf_tile walks {walked} evaluations, {evals} needed")
+        rec["ms"] = gpu_ms(lambda: otf.otf_leaf_tiles(
+            *args, kappa=kappa, src_cnt=counts[0], tgt_cnt=counts[1]), 10)
         rec["plain_ms"] = gpu_ms(
-            lambda: otf.otf_leaf_tiles_reference(*args, kappa=kappa), 2, 1)
+            lambda: otf.otf_leaf_tiles_reference(*args, kappa=kappa), 2, 1,
+            batches=1)
         rec["library_ms"] = None  # no single PyTorch call computes this
     return rec
+
+
+def otf_edge_tiles(ot, ql, mixed_bc):
+    """The small case's tables cut to what the kernel's walk relies on:
+    a full leaf (count == K) stays, another leaf keeps one real slot, a
+    third loses its pairs; with ``mixed_bc`` every other target carries
+    the other BC flag, so the first warp of a leaf holds both.  Returns
+    (tables, charges, the three leaves)."""
+    src, tgt = ot["sb_src"].clone(), ot["sb_tgt"].clone()
+    scnt, tcnt = ot["src_cnt"].clone(), ot["tgt_cnt"].clone()
+    ql = ql.clone()
+    K = ql.shape[1]
+    KQ = (src.shape[1] - 3) // 4
+    npair = (ot["row_ptr"][1:] - ot["row_ptr"][:-1]).cpu()
+    cnt = scnt[:-1].cpu()
+    cand = [int(i) for i in torch.nonzero(npair > 0).flatten()]
+    full = next((i for i in cand if cnt[i] == K), None)
+    one = next((i for i in cand if i != full and cnt[i] >= 2), None)
+    none = next((i for i in cand if i not in (full, one)), None)
+    if None in (full, one, none):
+        fail(f"small otf_tile case lacks a leaf: full {full}, one {one}, "
+             f"none {none}")
+    src[one, : 3 * KQ, 1:] = p2p.SENTINEL
+    src[one, 3 * KQ : 4 * KQ, 1:] = 0.0
+    tgt[one, :3, 1:] = p2p.SENTINEL
+    ql[one, 1:] = 0.0
+    scnt[one] = tcnt[one] = 1
+    if mixed_bc:
+        tgt[:-1, 3] = (torch.arange(K, device=DEV) % 2).to(tgt.dtype)
+    npair[none] = 0
+    row_ptr = torch.cat([torch.zeros(1, dtype=torch.int64),
+                         torch.cumsum(npair, 0)]).to(torch.int32).to(DEV)
+    keep = torch.ones(len(ot["sslot"]), dtype=torch.bool, device=DEV)
+    keep[int(ot["row_ptr"][none]):int(ot["row_ptr"][none + 1])] = False
+    tables = dict(sb_src=src, sb_tgt=tgt, row_ptr=row_ptr,
+                  sslot=ot["sslot"][keep].contiguous(), src_cnt=scnt,
+                  tgt_cnt=tcnt)
+    return tables, ql, {"full": full, "one_slot": one, "no_pairs": none}
 
 
 def check_p2p_tile(plan, d, ql, tol, label, time_it=False):
@@ -329,7 +405,7 @@ def check_p2p_tile(plan, d, ql, tol, label, time_it=False):
         rec["kernel_evaluations"] = evals
         rec["ms"] = gpu_ms(lambda: p2p.p2p_leaf_tiles(*args), 10)
         rec["plain_ms"] = gpu_ms(
-            lambda: p2p.p2p_leaf_tiles_reference(*args), 2, 1)
+            lambda: p2p.p2p_leaf_tiles_reference(*args), 2, 1, batches=1)
         rec["library_ms"] = None  # no single PyTorch call computes this
     return rec
 
@@ -389,6 +465,33 @@ def check_near_panel(panels, meta, nl_src, tol, label, time_it=False):
     return rec
 
 
+def check_contract(A, xb, tol, rec):
+    """The panel_contract kernel against the plain version on (A, xb),
+    twice (the bits must repeat), into ``rec``.  Zero rows of ``xb``
+    (dummy chunks) must give exact zeros.  Returns the kernel's result."""
+    want = npl.panel_contract_reference(A, xb)
+    got = npl.panel_contract(A, xb)
+    again = npl.panel_contract(A, xb)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        fail(f"panel_contract[{rec['case']}]: bad output {tuple(got.shape)}")
+    dummy = (xb == 0).all(dim=1)
+    rec["max_abs_err"] = float((got - want).abs().max())
+    rec["rel_err"] = rec["max_abs_err"] / float(want.abs().max())
+    rec["tol"] = tol
+    rec["dummy_chunks"] = int(dummy.sum())
+    rec["bit_equal_twice"] = bool(torch.equal(got, again))
+    rec["dummy_exact_zero"] = bool((got[dummy] == 0).all())
+    if (rec["rel_err"] > tol or not rec["bit_equal_twice"]
+            or not rec["dummy_exact_zero"]):
+        emit(rec)
+        fail(f"panel_contract[{rec['case']}]: rel {rec['rel_err']:.3e} "
+             f"(limit {tol:.1e}), two runs bit-equal "
+             f"{rec['bit_equal_twice']}, dummy chunks exactly 0 "
+             f"{rec['dummy_exact_zero']}")
+    return got
+
+
 def check_panel_contract(panels, meta, nl_src, tol, label, time_it=False):
     """The panel_contract kernel against its plain version on the card,
     on the chunk rows gathered from a seeded charge table, and the whole
@@ -397,51 +500,59 @@ def check_panel_contract(panels, meta, nl_src, tol, label, time_it=False):
     tolerance is relative to the output's largest value: both sides add
     a row's Lb products in another order.  Optionally timed beside its
     plain version, ``torch.bmm``, its bound, the whole two-stage route
-    and the fused ``near_panel`` kernel on the same store."""
+    and the fused ``near_panel`` kernel on the same store; the kernel,
+    ``torch.bmm`` and ``A.sum`` in turns, three rounds."""
     A = panels["A"]
     C, KTr, Lb = A.shape
     KSc = meta.KS * meta.cdim
     gen = torch.Generator(device=DEV).manual_seed(11)
     ql = torch.randn((nl_src, KSc), generator=gen, dtype=A.dtype, device=DEV)
     xb = npl.chunk_charge_rows(panels, ql)
-    got = npl.panel_contract(A, xb)
-    torch.cuda.synchronize()
-    want = npl.panel_contract_reference(A, xb)
-    if got.shape != want.shape or not torch.isfinite(got).all():
-        fail(f"panel_contract[{label}]: bad output {tuple(got.shape)}")
-    max_abs = float((got - want).abs().max())
-    rel = max_abs / float(want.abs().max())
-    two = npl.panel_matvec_two_stage(panels, meta, ql)
-    again = npl.panel_matvec_two_stage(panels, meta, ql)
-    ref = npl.panel_matvec_reference(panels, meta, ql)
-    two_rel = float((two - ref).abs().max() / ref.abs().max())
     n_real = int(panels["row_ptr"][-1])
     rec = {
         "kernel": "panel_contract", "case": label,
         "dtype": str(A.dtype).replace("torch.", ""),
         "A_shape": list(A.shape), "m0": meta.m0, "nl_t": meta.nl_t,
         "rdim": meta.rdim, "cdim": meta.cdim,
-        "dummy_chunks": C - n_real, "pad_columns": Lb - meta.m0 * KSc,
-        "max_abs_err": max_abs, "rel_err": rel, "tol": tol,
-        "two_stage_rel_err": two_rel,
-        "two_stage_bit_equal": bool(torch.equal(two, again)),
+        "pad_columns": Lb - meta.m0 * KSc,
     }
-    if rel > tol or two_rel > tol or not rec["two_stage_bit_equal"]:
+    got = check_contract(A, xb, tol, rec)
+    rec["dummy_chunks"] = C - n_real
+    two = npl.panel_matvec_two_stage(panels, meta, ql)
+    again = npl.panel_matvec_two_stage(panels, meta, ql)
+    ref = npl.panel_matvec_reference(panels, meta, ql)
+    two_rel = float((two - ref).abs().max() / ref.abs().max())
+    rec["two_stage_rel_err"] = two_rel
+    rec["two_stage_bit_equal"] = bool(torch.equal(two, again))
+    if two_rel > tol or not rec["two_stage_bit_equal"]:
         emit(rec)
-        fail(f"panel_contract[{label}]: kernel rel {rel:.3e}, two-stage "
-             f"route rel {two_rel:.3e} (limit {tol:.1e}), bit-equal "
-             f"{rec['two_stage_bit_equal']}")
+        fail(f"panel_contract[{label}]: two-stage route rel {two_rel:.3e} "
+             f"(limit {tol:.1e}), bit-equal {rec['two_stage_bit_equal']}")
     if time_it:
         # each input read once, the output written once; dummy chunks
         # are computed like any other, so the whole store counts
         arithmetic_bound(
             rec, nbytes_of(A, xb, got), 2.0 * C * KTr * Lb, 0, A.dtype)
-        rec["ms"] = gpu_ms(lambda: npl.panel_contract(A, xb), 20)
+        # in turns, three rounds (the card drifts over a round); beside
+        # them one PyTorch reduction that reads the same bytes of A
+        x3 = xb[:, :, None].contiguous()
+        timed = {"panel_contract": lambda: npl.panel_contract(A, xb),
+                 "torch.bmm": lambda: torch.bmm(A, x3),
+                 "A.sum": lambda: A.sum()}
+        rounds = {k: [] for k in timed}
+        for order in (list(timed), list(timed)[::-1], list(timed)):
+            for k in order:
+                rounds[k].append(gpu_ms(timed[k], 20))
+        ms = {k: statistics.mean(v) for k, v in rounds.items()}
+        rec["timing_rounds_ms"] = rounds
+        rec["clocks_after_timing"] = nvidia_smi_line(
+            "clocks.sm,clocks.mem,power.draw,temperature.gpu")
+        rec["ms"] = ms["panel_contract"]
+        rec["library_ms"] = ms["torch.bmm"]
+        rec["read_of_A_ms"] = ms["A.sum"]
+        del x3
         rec["plain_ms"] = gpu_ms(
             lambda: npl.panel_contract_reference(A, xb), 5)
-        x3 = xb[:, :, None].contiguous()
-        rec["library_ms"] = gpu_ms(lambda: torch.bmm(A, x3), 10)
-        del x3
         rec["two_stage_ms"] = gpu_ms(
             lambda: npl.panel_matvec_two_stage(panels, meta, ql), 20)
         # the fused kernel has no size limit: the same store through it
@@ -458,6 +569,36 @@ def check_panel_contract(panels, meta, nl_src, tol, label, time_it=False):
             fail(f"near_panel on the store of [{label}] disagrees with "
                  "the plain near-field product")
     return rec
+
+
+#: quadrature orders of the small otf_tile cases beside the paths' 3
+OTF_SMALL_KQ = (13, 25)
+
+#: synthetic panel_contract stores (C, KTr, Lb), each with a dummy chunk
+#: (a zero charge row) last: a row longer than the kernel's staged x tile
+#: of 6,144 columns, and a chunk count no multiple of the card's SM count
+#: with KTr no multiple of the kernel's row tile of 64
+CONTRACT_EDGE_STORES = {"lb8192": (37, 45, 8192), "ragged": (997, 45, 384)}
+
+
+def check_contract_edges(dtype, tol):
+    checks = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, (C, KTr, Lb) in CONTRACT_EDGE_STORES.items():
+        if label == "ragged" and (C % sms == 0 or KTr % 64 == 0):
+            fail("the ragged panel_contract store is not ragged")
+        gen = torch.Generator(device=DEV).manual_seed(C)
+        A = torch.randn((C, KTr, Lb), generator=gen, dtype=dtype, device=DEV)
+        xb = torch.randn((C, Lb), generator=gen, dtype=dtype, device=DEV)
+        xb[-1] = 0.0
+        rec = {"kernel": "panel_contract", "case": f"edge_{label}",
+               "dtype": str(dtype).replace("torch.", ""),
+               "A_shape": [C, KTr, Lb], "sms": sms}
+        check_contract(A, xb, tol, rec)
+        if rec["dummy_chunks"] != 1:
+            fail(f"panel_contract edge case {label} has no dummy chunk")
+        checks.append(rec)
+    return checks
 
 
 def stokes_plan(recursions, dtype, ncrit=64, leaf_pad=64):
@@ -513,10 +654,14 @@ def point_plan(n, seed, dtype="float32", ncrit=64):
 def phase_kernels_small():
     """Build the four kernels, then check each at f32 and f64 on a small
     problem with ragged leaves: near_panel (dummy chunks and dummy
-    tiles), otf_tile (kappa 0 and 0.5, both BC flags) on a recursion-5
-    sphere, p2p_tile on 20,000 points, panel_contract and the two-stage
-    route on the scalar store of that sphere and on both 3x3-block
-    stores of a recursion-4 Stokes sphere."""
+    tiles), otf_tile (kappa 0 and 0.5, both BC flags; then a full leaf,
+    a leaf of one real slot, a target leaf without pairs, and a warp of
+    both BC flags) on a recursion-5 sphere and at the quadrature orders
+    of ``OTF_SMALL_KQ`` on a recursion-4 one, p2p_tile on 20,000 points,
+    panel_contract and the two-stage route on the scalar store of that
+    sphere, on both 3x3-block stores of a recursion-4
+    Stokes sphere and on the synthetic stores of
+    ``CONTRACT_EDGE_STORES``."""
     t0 = time.time()
     _build.build(sorted(WRAPPERS))
     build_s = time.time() - t0
@@ -549,6 +694,7 @@ def phase_kernels_small():
                  "pad column")
         checks.extend(contract)
         del splan, spanels
+        checks.extend(check_contract_edges(tdt, tol))
         oplan, _ = build_plan(5, dtype, ncrit=32, leaf_pad=None,
                               near_mode="otf")
         ql, mask = leaf_charges(oplan, tdt)
@@ -560,6 +706,31 @@ def phase_kernels_small():
                 checks.append(check_otf_tile(
                     oplan, ot, ql, kappa, tol, f"recursion5_{bc}"
                 ))
+            # the edge cases: full leaf, one real slot, no pairs; both
+            # BC flags in one warp on top of this variant's tables
+            for mixed in (False, True):
+                et, eq, leaves = otf_edge_tiles(ot, ql, mixed)
+                name = f"edge_{bc}{'_mixed_bc' if mixed else ''}"
+                for kappa in (0.0, 0.5):
+                    rec = check_otf_tile(oplan, et, eq, kappa, tol, name)
+                    rec["edge_leaves"] = leaves
+                    checks.append(rec)
+        # quadrature orders other than 3 take the kernel's run-time KQ;
+        # at f64 two stages of 256 panels of KQ = 25 would need 416 KB of
+        # shared memory, so the kernel cuts its stages to what fits
+        for kq in OTF_SMALL_KQ:
+            kplan, _ = build_plan(4, dtype, ncrit=32, leaf_pad=None,
+                                  near_mode="otf", K=kq)
+            kql, _ = leaf_charges(kplan, tdt)
+            kot = kplan.near_panels()[0]["otf_tiles"]
+            if (kot["sb_src"].shape[1] - 3) // 4 != kq:
+                fail(f"small otf_tile case of KQ = {kq} has another order")
+            et, eq, _ = otf_edge_tiles(kot, kql, True)
+            for kappa in (0.0, 0.5):
+                checks.append(check_otf_tile(
+                    kplan, kot, kql, kappa, tol, f"recursion4_KQ{kq}"))
+                checks.append(check_otf_tile(
+                    kplan, et, eq, kappa, tol, f"edge_KQ{kq}_mixed_bc"))
         pplan, _, _ = point_plan(20000, 5, dtype, ncrit=32)
         ql, mask = leaf_charges(pplan, tdt)
         if bool(mask.all()):
@@ -710,23 +881,26 @@ def phase_profile(plan, charges, p=5, phase="profile"):
     M = plan._phase_m2m(d, M0.clone())
     L0 = plan._phase_m2l(d, M, p)
     L = plan._phase_l2l(d, L0.clone())
+    def t(fn):  # one batch of 10: most phases are host-bound
+        return gpu_ms(fn, 10, batches=1)
+
     phase_ms = {
-        "p2m": gpu_ms(lambda: plan._p2m_slots(d, aux, q_t, p), 10),
-        "m2m": gpu_ms(lambda: plan._phase_m2m(d, M0.clone()), 10),
-        "m2l": gpu_ms(lambda: plan._phase_m2l(d, M, p), 10),
-        "l2l": gpu_ms(lambda: plan._phase_l2l(d, L0.clone()), 10),
-        "l2p": gpu_ms(lambda: plan._l2p_slots(d, aux, L, p), 10),
-        "m2p": gpu_ms(lambda: plan._m2p_pass(d, tf, M, p, nl, K), 10)
+        "p2m": t(lambda: plan._p2m_slots(d, aux, q_t, p)),
+        "m2m": t(lambda: plan._phase_m2m(d, M0.clone())),
+        "m2l": t(lambda: plan._phase_m2l(d, M, p)),
+        "l2l": t(lambda: plan._phase_l2l(d, L0.clone())),
+        "l2p": t(lambda: plan._l2p_slots(d, aux, L, p)),
+        "m2p": t(lambda: plan._m2p_pass(d, tf, M, p, nl, K))
         if len(plan.m2p_src) else 0.0,
-        "near": gpu_ms(lambda: plan._near_pass_slots(aux, q_t), 10)
+        "near": t(lambda: plan._near_pass_slots(aux, q_t))
         if "panels" in aux
-        else gpu_ms(lambda: plan._p2p_pass(d, sf, tf, q_t, nl, K), 10),
-        "matvec": gpu_ms(lambda: mv(operand, x, p), 10),
+        else t(lambda: plan._p2p_pass(d, sf, tf, q_t, nl, K)),
+        "matvec": t(lambda: mv(operand, x, p)),
     }
     if plan._otf_near:
         ql = q_t.reshape(nl, K)
-        phase_ms["near_corrections"] = gpu_ms(
-            lambda: plan._near_otf_corr(aux["panels"], ql, ql), 10)
+        phase_ms["near_corrections"] = t(
+            lambda: plan._near_otf_corr(aux["panels"], ql, ql))
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -902,6 +1076,8 @@ def path_otf(recursions):
     ot64 = {k: v.double() if v.is_floating_point() else v
             for k, v in ot.items()}
     full64 = check_otf_tile(plan, ot64, ql.double(), 0.0, 1e-12, "otf_path")
+    yukawa64 = check_otf_tile(plan, ot64, ql.double(), 0.5, 1e-12,
+                              "otf_path_kappa0.5")
     del ot64
     torch.cuda.empty_cache()
     main_rec, _, b1, b2 = phase_main_path(
@@ -910,7 +1086,7 @@ def path_otf(recursions):
     phase_profile(plan, np.ones(n, np.float32), phase="otf_profile")
     del plan, store, ot, ql
     phase_otf_f64(recursions, n, main_rec, b1, b2)
-    return [full, yukawa, full64], kernel_entry(
+    return [full, yukawa, full64, yukawa64], kernel_entry(
         "otf_tile", "fmm_bem_tpu/ops/otf_tile.py:80", full,
         main_rec["kernel_launches"],
     )
@@ -996,7 +1172,7 @@ def path_points(npoints, nbase):
     torch.cuda.synchronize()
     first_apply_s = time.time() - t0
     counts = launch_counts()  # ... and read just after it
-    apply_ms = gpu_ms(lambda: plan.apply(q, p=5), 5, 1)
+    apply_ms = gpu_ms(lambda: plan.apply(q, p=5), 5, 1, batches=1)
     err_pot, err_force = sample_errors(plan, pts, q, out)
     rec = {
         "phase": "points_path", "n_points": npoints, "p": 5,
@@ -1242,6 +1418,11 @@ def main():
               "launches_per_matvec": 1, "path_s": time.time() - t0})
         entries.append(entry)
 
+    emit({"phase": "previous_times", "measured_in_this_run": False,
+          "source": "PERF.md, table of TPU kernels, before the last "
+                    "redesign (f32, NVIDIA H100 80GB HBM3, 700.00 W, one "
+                    "synchronised call per sample)",
+          "ms": PREVIOUS_MS})
     emit({"kernels": entries})
     print(env["gpu"], flush=True)
     emit({"ok": True, "device": {

@@ -27,7 +27,10 @@
 // across the whole row, so there is one shuffle reduction and one plain
 // store per output element.  No atomics: every element of out is written
 // exactly once and the bits repeat from run to run.  Offsets into A are
-// 64-bit (a Stokes store passes 2^31 elements at about 8 GB).
+// 64-bit (a Stokes store passes 2^31 elements at about 8 GB).  Two
+// persistent designs, register streaming and a ring of bulk copies in
+// shared memory, were no faster at the Stokes path's shapes on an NVIDIA
+// H100 80GB HBM3 at 700 W (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>

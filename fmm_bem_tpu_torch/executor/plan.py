@@ -65,6 +65,7 @@ from fmm_bem_tpu_torch.ops.near_panel import (
     panel_matvec,
 )
 from fmm_bem_tpu_torch.ops.otf_tile import (
+    leaf_counts,
     otf_leaf_tiles,
     pack_otf_src,
     pack_otf_tgt,
@@ -1199,9 +1200,9 @@ class FmmPlan:
 
     def _otf_tiles(self, tgt_fields_host):
         """Packed leaf tiles for the on-the-fly near product
-        (ops/otf_tile.py) and the target-sorted pair list.  The source
-        tiles and the pair list are plan constants; the target tiles
-        carry the variant's BC flags."""
+        (ops/otf_tile.py), their count tables and the target-sorted pair
+        list.  The source tiles, the counts and the pair list are plan
+        constants; the target tiles carry the variant's BC flags."""
         npdt = np.dtype(self.config.dtype)
         if self._otf_src_dev is None:
             idx = self.src.leaf_body_idx
@@ -1217,6 +1218,12 @@ class FmmPlan:
                 "sslot": self._tensor(self._otf_sslot, torch.int32),
                 "row_ptr": self._tensor(
                     chunk_row_ptr(self._otf_tslot, nl_t), torch.int32
+                ),
+                "src_cnt": self._tensor(
+                    leaf_counts(self.src.leaf_body_mask), torch.int32
+                ),
+                "tgt_cnt": self._tensor(
+                    leaf_counts(self.tgt.leaf_body_mask), torch.int32
                 ),
             }
         t_idx = self.tgt.leaf_body_idx
@@ -1237,6 +1244,7 @@ class FmmPlan:
             ot["sb_src"], ql.contiguous(), ot["sb_tgt"], ot["row_ptr"],
             ot["sslot"], self._otf_KQ,
             kappa=float(getattr(self.kernel, "kappa", 0.0) or 0.0),
+            src_cnt=ot["src_cnt"], tgt_cnt=ot["tgt_cnt"],
         )
         return self._near_otf_corr(dev, ql, res)
 

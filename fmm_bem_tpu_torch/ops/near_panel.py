@@ -554,8 +554,10 @@ def panel_contract(A, xb):
             f"panel_contract: xb on {xb.device}, A on {A.device}"
         )
     for name, t in (("A", A), ("xb", xb)):
-        if not t.is_contiguous():
-            raise ValueError(f"panel_contract: {name} must be contiguous")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(
+                f"panel_contract: {name} must be contiguous and 16-byte "
+                "aligned")
     if A.ndim != 3 or xb.shape != (A.shape[0], A.shape[2]) \
             or A.shape[2] % 128 != 0:
         raise ValueError(

@@ -17,7 +17,10 @@ Packed source-tile layout [nl+1, CS, K] with CS = 4*KQ + 3
   rows 4KQ..4KQ+2 panel normal
 Target tiles [nl+1, 4, K]: xyz rows + BC flag row.  Charges are a
 separate [nl, K] table, rebuilt per matvec.  Padded panels (and the
-closing dummy tile) sit at a far sentinel position.
+closing dummy tile) sit at a far sentinel position.  The real panels of
+a leaf lead its tile, so a count table [nl+1] (``leaf_counts``; the
+closing dummy tile counts 0) says which slots are real: the kernel
+walks only those.
 
 On CUDA tensors the product runs as the hand-written kernel of
 ``csrc/otf_tile.cu``; on CPU tensors it runs as the plain PyTorch
@@ -74,13 +77,31 @@ def pack_otf_tgt(xyz_tiled, bc_tiled, mask, dtype=np.float32):
     return out
 
 
+def leaf_counts(mask):
+    """Count table [nl + 1] int32 of a leaf body mask [nl, K]: the real
+    slots of each leaf, then 0 for the closing dummy tile.  Raises if a
+    leaf's real slots do not lead its tile (``mask[l] == arange(K) <
+    count[l]``), which is what the kernel relies on."""
+    mask = np.asarray(mask, bool)
+    cnt = mask.sum(axis=1)
+    if not np.array_equal(mask, np.arange(mask.shape[1]) < cnt[:, None]):
+        raise ValueError("leaf_counts: real slots do not lead every tile")
+    return np.append(cnt, 0).astype(np.int32)
+
+
 def otf_leaf_tiles_reference(src_tab, ql, tgt_tab, row_ptr, src_idx, KQ,
-                             kappa=0.0, chunk=256):
+                             kappa=0.0, chunk=256, src_cnt=None,
+                             tgt_cnt=None):
     """Plain PyTorch version of the on-the-fly near product, with the
     arithmetic of ``near_block_device`` (sqrt, r^2 floored at 1e-30) on
     the packed tiles.  Chunked over pairs so the [chunk, KT, KS, KQ]
-    planes stay small at any pair count.  Padded panels (those at the
-    sentinel) are masked out exactly."""
+    planes stay small at any pair count.  Padded panels are masked out
+    exactly: those past the count tables ``src_cnt`` / ``tgt_cnt``
+    (``leaf_counts``) where they are given, else those at the sentinel;
+    both give the same result."""
+    if (src_cnt is None) != (tgt_cnt is None):
+        raise ValueError("otf_leaf_tiles_reference: give both count "
+                         "tables or neither")
     nl_t = row_ptr.shape[0] - 1
     K = tgt_tab.shape[2]
     dev, dt = ql.device, ql.dtype
@@ -102,7 +123,12 @@ def otf_leaf_tiles_reference(src_tab, ql, tgt_tab, row_ptr, src_idx, KQ,
         qp = s[:, : 3 * KQ].reshape(c, 3, KQ, K)
         w = s[:, 3 * KQ : 4 * KQ]                        # [c, KQ, KS]
         nrm = s[:, 4 * KQ : 4 * KQ + 3]                  # [c, 3, KS]
-        keep = (t[:, 0, :, None] < half) & (qp[:, 0, 0, None, :] < half)
+        if src_cnt is None:
+            keep = (t[:, 0, :, None] < half) & (qp[:, 0, 0, None, :] < half)
+        else:
+            pos = torch.arange(K, device=dev)
+            keep = (pos < tgt_cnt[ts].long()[:, None])[:, :, None] & (
+                pos < src_cnt[ss].long()[:, None])[:, None, :]
         # d = target - quadrature point, [c, KT, KQ, KS] per dimension;
         # masked pairs get a harmless unit offset
         d = [
@@ -136,8 +162,8 @@ def otf_leaf_tiles_reference(src_tab, ql, tgt_tab, row_ptr, src_idx, KQ,
 
 
 _C_ARGTYPES = (
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
-    + [ctypes.c_double, ctypes.c_double, ctypes.c_void_p]
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+    + [ctypes.c_double, ctypes.c_void_p]
 )
 
 
@@ -151,7 +177,8 @@ def _kernel_fn(dtype):
     return fn
 
 
-def otf_leaf_tiles(src_tab, ql, tgt_tab, row_ptr, src_idx, KQ, kappa=0.0):
+def otf_leaf_tiles(src_tab, ql, tgt_tab, row_ptr, src_idx, KQ, kappa=0.0,
+                   src_cnt=None, tgt_cnt=None):
     """On-the-fly near product from leaf-tiled charges.
 
     Parameters
@@ -164,6 +191,10 @@ def otf_leaf_tiles(src_tab, ql, tgt_tab, row_ptr, src_idx, KQ, kappa=0.0):
     row_ptr : [nl_t + 1] int32, ``src_idx`` : [npairs] int32 — the
         target-sorted pair list (source leaves in [0, nl_s)).
     kappa : screening parameter (0 = Laplace).
+    src_cnt : [nl_s + 1] int32, tgt_cnt : [nl_t + 1] int32 — real slots
+        per leaf of each table (``leaf_counts``); the kernel walks only
+        those and needs both, the plain version takes the sentinel
+        without them.
     Returns [nl_t, K] leaf potential tiles, padded target slots zero.
 
     Tensors on the CPU take the plain version; CUDA tensors launch the
@@ -172,7 +203,8 @@ def otf_leaf_tiles(src_tab, ql, tgt_tab, row_ptr, src_idx, KQ, kappa=0.0):
     """
     if ql.device.type == "cpu":
         return otf_leaf_tiles_reference(
-            src_tab, ql, tgt_tab, row_ptr, src_idx, KQ, kappa
+            src_tab, ql, tgt_tab, row_ptr, src_idx, KQ, kappa,
+            src_cnt=src_cnt, tgt_cnt=tgt_cnt,
         )
     if ql.device.type != "cuda":
         raise RuntimeError(f"otf_leaf_tiles: unsupported device {ql.device}")
@@ -183,10 +215,16 @@ def otf_leaf_tiles(src_tab, ql, tgt_tab, row_ptr, src_idx, KQ, kappa=0.0):
             f"otf_leaf_tiles: src_tab {src_tab.dtype} / ql {ql.dtype} / "
             f"tgt_tab {tgt_tab.dtype} must all be float32 or all float64"
         )
-    if row_ptr.dtype != torch.int32 or src_idx.dtype != torch.int32:
-        raise TypeError("otf_leaf_tiles: row_ptr and src_idx must be int32")
+    if src_cnt is None or tgt_cnt is None:
+        raise ValueError("otf_leaf_tiles: the kernel needs the count "
+                         "tables src_cnt and tgt_cnt (leaf_counts)")
+    if any(t.dtype != torch.int32
+           for t in (row_ptr, src_idx, src_cnt, tgt_cnt)):
+        raise TypeError("otf_leaf_tiles: row_ptr, src_idx, src_cnt and "
+                        "tgt_cnt must be int32")
     for name, t in (("src_tab", src_tab), ("ql", ql), ("tgt_tab", tgt_tab),
-                    ("row_ptr", row_ptr), ("src_idx", src_idx)):
+                    ("row_ptr", row_ptr), ("src_idx", src_idx),
+                    ("src_cnt", src_cnt), ("tgt_cnt", tgt_cnt)):
         if t.device != ql.device:
             raise RuntimeError(
                 f"otf_leaf_tiles: {name} on {t.device}, ql on {ql.device}"
@@ -201,11 +239,14 @@ def otf_leaf_tiles(src_tab, ql, tgt_tab, row_ptr, src_idx, KQ, kappa=0.0):
         or tgt_tab.shape[1:] != (4, ql.shape[1])
         or row_ptr.ndim != 1 or src_idx.ndim != 1
         or nl_t < 0 or nl_t > tgt_tab.shape[0] - 1
+        or src_cnt.shape != (src_tab.shape[0],)
+        or tgt_cnt.shape != (tgt_tab.shape[0],)
     ):
         raise ValueError(
             f"otf_leaf_tiles: shapes src_tab {tuple(src_tab.shape)} ql "
             f"{tuple(ql.shape)} tgt_tab {tuple(tgt_tab.shape)} row_ptr "
-            f"{tuple(row_ptr.shape)} do not fit KQ={KQ}"
+            f"{tuple(row_ptr.shape)} src_cnt {tuple(src_cnt.shape)} "
+            f"tgt_cnt {tuple(tgt_cnt.shape)} do not fit KQ={KQ}"
         )
     K = ql.shape[1]
     out = torch.empty((nl_t, K), dtype=ql.dtype, device=ql.device)
@@ -214,8 +255,8 @@ def otf_leaf_tiles(src_tab, ql, tgt_tab, row_ptr, src_idx, KQ, kappa=0.0):
     with torch.cuda.device(ql.device):
         err = _kernel_fn(ql.dtype)(
             src_tab.data_ptr(), ql.data_ptr(), tgt_tab.data_ptr(),
-            row_ptr.data_ptr(), src_idx.data_ptr(), out.data_ptr(),
-            nl_t, K, KQ, float(kappa), float(SENTINEL),
+            row_ptr.data_ptr(), src_idx.data_ptr(), src_cnt.data_ptr(),
+            tgt_cnt.data_ptr(), out.data_ptr(), nl_t, K, KQ, float(kappa),
             torch.cuda.current_stream().cuda_stream,
         )
     otf_leaf_tiles.launches += 1

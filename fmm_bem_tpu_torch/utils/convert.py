@@ -22,7 +22,11 @@ import numpy as np
 import torch
 
 from fmm_bem_tpu_torch.ops.near_panel import NearPanels, chunk_row_ptr
-from fmm_bem_tpu_torch.ops.otf_tile import pack_otf_src, pack_otf_tgt
+from fmm_bem_tpu_torch.ops.otf_tile import (
+    leaf_counts,
+    pack_otf_src,
+    pack_otf_tgt,
+)
 
 
 def _to_torch(obj, device, dtype):
@@ -101,8 +105,8 @@ def otf_panels_from_numpy(panels, device="cuda", dtype=torch.float32):
         ``corr_rowof_e``).
     The leaf tiles are packed here, in ``dtype``, into the source and
     target tables of ops/otf_tile.py; the pair lists lose their chunk
-    padding and get the int32 form and the row pointer the CUDA kernel
-    reads.
+    padding and get the int32 form, the row pointer and the count tables
+    the CUDA kernel reads.
     """
     device = torch.device(device)
     npdt = np.float64 if dtype == torch.float64 else np.float32
@@ -134,5 +138,7 @@ def otf_panels_from_numpy(panels, device="cuda", dtype=torch.float32):
         ),
         "sslot": put(sslot, torch.int32),
         "row_ptr": put(chunk_row_ptr(tslot, len(t_mask)), torch.int32),
+        "src_cnt": put(leaf_counts(s_mask), torch.int32),
+        "tgt_cnt": put(leaf_counts(t_mask), torch.int32),
     }
     return out

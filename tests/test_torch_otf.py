@@ -11,6 +11,9 @@ port, on the CPU (f64 unless said).
   package's Pallas kernel run in interpret mode (f32, 1e-5 of the
   output's max: the kernel inverts r with rsqrt, the plain version with
   sqrt, and both sum 64 x 3 terms per entry in another order).
+- The count tables the kernel walks by (real slots per leaf, a closing
+  0) and the invariant they rest on: the real slots of a leaf lead its
+  tile, on the port's plans and on the JAX package's alike.
 - A relaxed solve through the OTF operator takes the same iterations
   with the same orders as through the cached one.
 """
@@ -33,6 +36,7 @@ from fmm_bem_tpu.ops.otf_tile import otf_superblock_bem
 from fmm_bem_tpu_torch.executor import plan as tplan_mod
 from fmm_bem_tpu_torch.kernels.laplace_bem import LaplaceBEMKernel as TKernel
 from fmm_bem_tpu_torch.ops.otf_tile import (
+    leaf_counts,
     otf_leaf_tiles,
     otf_leaf_tiles_reference,
 )
@@ -344,6 +348,69 @@ def test_plain_version_matches_interpreted_pallas_kernel(kappa):
     # rounding-sized values; the port's are exactly zero
     assert (got[~mask] == 0).all()
     assert np.abs(want[~mask]).max() <= 1e-5 * scale
+
+
+# ----------------------------------------------------------------------
+# the count tables
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("side", ["src", "tgt"])
+def test_count_table_is_body_mask_sum(sphere4, side):
+    _, _, plan = sphere4
+    ot = plan.near_panels()[0]["otf_tiles"]
+    mask = getattr(plan, side).leaf_body_mask
+    cnt = ot[f"{side}_cnt"]
+    assert cnt.dtype == torch.int32 and cnt.shape == (len(mask) + 1,)
+    np.testing.assert_array_equal(
+        cnt.numpy(), np.append(mask.sum(axis=1), 0))
+    assert (cnt[:-1] > 0).all() and (cnt[:-1] < mask.shape[1]).any()
+
+
+@pytest.mark.parametrize("package", ["port", "jax"])
+@pytest.mark.parametrize("recursion,cfg", [
+    (4, dict(leaf_pad=72)), (5, dict(ncrit=32)),
+    (3, dict(ncrit=16, leaf_pad=24)),
+], ids=["rec4_pad72", "rec5_ncrit32", "rec3_ncrit16_pad24"])
+def test_real_slots_lead_each_tile(package, recursion, cfg):
+    """``leaf_body_mask == arange(K) < count``: the kernel walks slots
+    [0, count) of each leaf, so a real slot past a padded one would be
+    lost."""
+    fields = make_panels(unit_sphere(recursion), K=3)
+    build = tplan if package == "port" else jplan
+    plan = build(fields, "otf", **cfg)
+    for side in (plan.src, plan.tgt):
+        mask = np.asarray(side.leaf_body_mask)
+        cnt = mask.sum(axis=1)
+        np.testing.assert_array_equal(
+            mask, np.arange(mask.shape[1])[None, :] < cnt[:, None])
+        np.testing.assert_array_equal(leaf_counts(mask)[:-1], cnt)
+    assert (cnt < mask.shape[1]).any()  # padded slots exist
+
+
+def test_leaf_counts_refuses_a_gap():
+    mask = np.array([[True, False, True], [True, True, False]])
+    with pytest.raises(ValueError, match="lead"):
+        leaf_counts(mask)
+    np.testing.assert_array_equal(leaf_counts(mask[1:]), [2, 0])
+
+
+@pytest.mark.parametrize("flipped", [False, True], ids=["bc0", "bc1"])
+@pytest.mark.parametrize("kappa", [0.0, 0.5])
+def test_plain_version_same_with_count_tables(sphere4, kappa, flipped):
+    """Padded slots contribute exactly zero either way: masking by the
+    count tables gives the sentinel's result."""
+    _, _, plan = sphere4
+    ot, ql = leaf_tile_inputs(plan, flipped)
+    args = (ot["sb_src"], ql, ot["sb_tgt"], ot["row_ptr"], ot["sslot"],
+            plan._otf_KQ)
+    without = otf_leaf_tiles_reference(*args, kappa=kappa)
+    with_cnt = otf_leaf_tiles_reference(
+        *args, kappa=kappa, src_cnt=ot["src_cnt"], tgt_cnt=ot["tgt_cnt"])
+    assert relmax(with_cnt, without.numpy()) <= 1e-14
+    via_entry = otf_leaf_tiles(
+        *args, kappa=kappa, src_cnt=ot["src_cnt"], tgt_cnt=ot["tgt_cnt"])
+    assert torch.equal(via_entry, with_cnt)
+    with pytest.raises(ValueError, match="both"):
+        otf_leaf_tiles_reference(*args, src_cnt=ot["src_cnt"])
 
 
 # ----------------------------------------------------------------------
