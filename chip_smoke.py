@@ -136,12 +136,13 @@ STOKES_DRAG_ERR_LIMIT = 5e-4
 STOKES_REC8_HOST_BUDGET_S = 120.0
 
 #: each kernel's time at its path's shapes in PERF.md's table before its
-#: last redesign (near_panel, otf_tile and p2p_tile from run C,
-#: panel_contract from run G; f32, NVIDIA H100 80GB HBM3 at 700.00 W),
-#: timed then one synchronised call at a time.  Printed on a line of its
-#: own for the reader to set beside this run's times: not measured here
+#: last redesign (f32, NVIDIA H100 80GB HBM3 at 700.00 W): near_panel and
+#: otf_tile from run C, panel_contract from run G, timed then one
+#: synchronised call at a time; p2p_tile from run N, launches back to
+#: back as now.  Printed on a line of its own for the reader to set
+#: beside this run's times: not measured here
 PREVIOUS_MS = {"near_panel": 0.490, "panel_contract": 0.885,
-               "otf_tile": 3.086, "p2p_tile": 3.115}
+               "otf_tile": 3.086, "p2p_tile": 2.938}
 
 DEV = torch.device("cuda")
 
@@ -367,47 +368,139 @@ def otf_edge_tiles(ot, ql, mixed_bc):
     return tables, ql, {"full": full, "one_slot": one, "no_pairs": none}
 
 
-def check_p2p_tile(plan, d, ql, tol, label, time_it=False):
-    """The p2p_tile kernel against its plain version on the card, per
-    result component (potential, fx, fy, fz) relative to that
-    component's largest value: f32 differs by rsqrtf against sqrt and a
-    division, and by the order in which a leaf's sources are added."""
-    nl, K = ql.shape
-    xyzq = p2p.pack_xyzq(d["p2p_xyz3"].to(ql.dtype), ql[:, None, :])
-    args = (xyzq, d["p2p_row_ptr"], d["p2p_src_sorted"], plan.kernel.eps2)
+def p2p_tables(d, ql):
+    """The kernel's inputs from a point plan's device data and seeded
+    charge tiles ``ql`` [nl, K] (their dtype)."""
+    return dict(
+        xyzq=p2p.pack_xyzq(d["p2p_xyz3"].to(ql.dtype), ql[:, None, :]),
+        row_ptr=d["p2p_row_ptr"], src_idx=d["p2p_src_sorted"],
+        cnt=d["p2p_cnt"],
+    )
+
+
+def p2p_walked(tb):
+    """Evaluations the kernel's loops run, worked out on the host from
+    the tables it reads: per pair, the target leaf's count times the
+    source leaf's."""
+    cnt = tb["cnt"].long()
+    nl_t = tb["row_ptr"].shape[0] - 1
+    tslot = torch.repeat_interleave(
+        torch.arange(nl_t, device=DEV),
+        (tb["row_ptr"][1:] - tb["row_ptr"][:-1]).long())
+    return int((cnt[tslot] * cnt[tb["src_idx"].long()]).sum())
+
+
+def check_p2p_tile(plan, tb, tol, label, time_it=False):
+    """The p2p_tile kernel against its plain version on the card, both
+    given the count table, per result component (potential, fx, fy, fz)
+    relative to that component's largest value: f32 differs by rsqrt
+    against sqrt and a division, and by the order in which a leaf's
+    sources are added.  Every slot is compared; padded target slots and
+    target leaves without pairs must be exactly 0 on both sides, and a
+    second launch must give the same bits."""
+    args = (tb["xyzq"], tb["row_ptr"], tb["src_idx"], plan.kernel.eps2,
+            tb["cnt"])
     got = p2p.p2p_leaf_tiles(*args)
+    again = p2p.p2p_leaf_tiles(*args)
     torch.cuda.synchronize()
     want = p2p.p2p_leaf_tiles_reference(*args)
     if got.shape != want.shape or not torch.isfinite(got).all():
         fail(f"p2p_tile[{label}]: bad output {tuple(got.shape)} "
              "(every element must be finite, padded slots included)")
+    nl_t, _, K = got.shape
+    real = (torch.arange(K, device=DEV) < tb["cnt"][:nl_t, None])[:, None]
+    real = real.expand_as(got)
+    no_pairs = tb["row_ptr"][1:] == tb["row_ptr"][:-1]
+    zeros_exact = all(bool((x[~real] == 0).all() and (x[no_pairs] == 0).all())
+                      for x in (got, want))
+    bit_equal = torch.equal(got, again)
     err = (got - want).abs().amax(dim=(0, 2))
     scale = want.abs().amax(dim=(0, 2))
     max_abs = float(err.max())
     rel = float((err / scale).max())
     rec = {
         "kernel": "p2p_tile", "case": label,
-        "dtype": str(ql.dtype).replace("torch.", ""),
-        "tiles": list(xyzq.shape), "near_pairs": len(plan.p2p_src_slot),
+        "dtype": str(got.dtype).replace("torch.", ""),
+        "tiles": list(tb["xyzq"].shape), "near_pairs": len(tb["src_idx"]),
         "max_abs_err": max_abs, "rel_err": rel, "tol": tol,
-        "all_finite": True,
+        "all_finite": True, "padded_and_pairless_exact_zero": zeros_exact,
+        "repeat_bit_equal": bit_equal,
     }
-    if rel > tol:
+    if rel > tol or not zeros_exact or not bit_equal:
         emit(rec)
         fail(f"p2p_tile[{label}] disagrees with its plain version: "
-             f"rel {rel:.3e} > {tol:.1e}")
+             f"rel {rel:.3e} > {tol:.1e}, exact zeros {zeros_exact}, "
+             f"repeat bit-equal {bit_equal}")
     if time_it:
         evals = pair_evaluations(plan)
+        walked = p2p_walked(tb)
         arithmetic_bound(
-            rec, nbytes_of(*args[:3], got), evals * P2P_FLOPS, evals,
-            ql.dtype,
+            rec, nbytes_of(*args[:3], tb["cnt"], got), evals * P2P_FLOPS,
+            evals, got.dtype,
         )
         rec["kernel_evaluations"] = evals
+        rec["evaluations_walked_from_count_tables"] = walked
+        rec["evaluations_walked_before_from_tile_shape"] = (
+            len(tb["src_idx"]) * K * K)  # every slot: the first design
+        if walked != evals:
+            emit(rec)
+            fail(f"p2p_tile walks {walked} evaluations, {evals} needed")
         rec["ms"] = gpu_ms(lambda: p2p.p2p_leaf_tiles(*args), 10)
         rec["plain_ms"] = gpu_ms(
             lambda: p2p.p2p_leaf_tiles_reference(*args), 2, 1, batches=1)
         rec["library_ms"] = None  # no single PyTorch call computes this
     return rec
+
+
+def p2p_edge_tables(tb, K, dtype):
+    """The small case's tables cut to what the kernel's walk relies on: a
+    full leaf (count == K) stays; another leaf keeps one real point (its
+    other slots keep their points and charges: only the count hides
+    them); a third loses its pairs; a fourth is given every leaf as a
+    source, more real points than two stages hold, so the ring turns
+    over (and the pair window slides); a source point of a fifth leaf's
+    neighbour is moved onto one of its targets.  Returns (tables, the
+    leaves)."""
+    cnt = tb["cnt"].cpu().numpy().copy()
+    rp = tb["row_ptr"].cpu().numpy()
+    src = tb["src_idx"].cpu().numpy()
+    nl = len(cnt) - 1
+    lists = [src[rp[l]:rp[l + 1]] for l in range(len(rp) - 1)]
+    cand = [l for l in range(len(lists)) if len(lists[l])]
+    full = next((l for l in cand if cnt[l] == K), None)
+    one = next((l for l in cand if l != full and cnt[l] >= 2), None)
+    none = next((l for l in cand if l not in (full, one)), None)
+    big = next((l for l in cand if l not in (full, one, none)), None)
+    taken = (full, one, none, big)
+    pair = next(((a, b) for a in cand if a not in taken and cnt[a]
+                 for b in lists[a] if b != a and b not in taken and cnt[b]),
+                None)
+    if None in taken or pair is None:
+        fail(f"small p2p_tile case lacks a leaf: full {full}, one {one}, "
+             f"none {none}, big {big}, coincident {pair}")
+    cap = p2p.stage_capacity(dtype, K)
+    cnt[one] = 1
+    lists[none] = lists[none][:0]
+    lists[big] = np.arange(nl, dtype=src.dtype)
+    big_sources = int(cnt[:nl].sum())
+    if big_sources <= 2 * cap:
+        fail(f"small p2p_tile case: {big_sources} sources fit in two "
+             f"stages of {cap}")
+    xyzq = tb["xyzq"].clone()
+    a, b = pair
+    xyzq[b, :3, 0] = xyzq[a, :3, 0]  # real in both leaves, r = 0
+    lens = np.array([len(x) for x in lists])
+    tables = dict(
+        xyzq=xyzq,
+        row_ptr=torch.as_tensor(np.append(0, np.cumsum(lens)),
+                                dtype=torch.int32, device=DEV),
+        src_idx=torch.as_tensor(np.concatenate(lists), dtype=torch.int32,
+                                device=DEV),
+        cnt=torch.as_tensor(cnt, device=DEV),
+    )
+    return tables, {"full": full, "one_point": one, "no_pairs": none,
+                    "past_two_stages": big, "big_sources": big_sources,
+                    "stage_cap": cap, "coincident": [int(a), int(b)]}
 
 
 def check_near_panel(panels, meta, nl_src, tol, label, time_it=False):
@@ -657,7 +750,10 @@ def phase_kernels_small():
     tiles), otf_tile (kappa 0 and 0.5, both BC flags; then a full leaf,
     a leaf of one real slot, a target leaf without pairs, and a warp of
     both BC flags) on a recursion-5 sphere and at the quadrature orders
-    of ``OTF_SMALL_KQ`` on a recursion-4 one, p2p_tile on 20,000 points,
+    of ``OTF_SMALL_KQ`` on a recursion-4 one, p2p_tile on 20,000 points
+    (then a full leaf, a leaf of one real point, a target leaf without
+    pairs, a leaf with more sources than two stages hold, and coincident
+    points in two leaves of a pair),
     panel_contract and the two-stage route on the scalar store of that
     sphere, on both 3x3-block stores of a recursion-4
     Stokes sphere and on the synthetic stores of
@@ -735,9 +831,14 @@ def phase_kernels_small():
         ql, mask = leaf_charges(pplan, tdt)
         if bool(mask.all()):
             fail("small p2p_tile case has no padded slot")
-        checks.append(check_p2p_tile(
-            pplan, pplan.device_data(5), ql, tol, "points20000"
-        ))
+        tb = p2p_tables(pplan.device_data(5), ql)
+        checks.append(check_p2p_tile(pplan, tb, tol, "points20000"))
+        # the edge cases: full leaf, one real point, no pairs, more
+        # sources than two stages, coincident points across a pair
+        et, leaves = p2p_edge_tables(tb, pplan.leaf_pad, tdt)
+        rec = check_p2p_tile(pplan, et, tol, "edge_points20000")
+        rec["edge_leaves"] = leaves
+        checks.append(rec)
     return build_s, checks
 
 
@@ -1161,8 +1262,10 @@ def path_points(npoints, nbase):
     emit_plan_build("points_plan_build", plan, npoints, host_build_s)
     ql, _ = leaf_charges(plan, torch.float32)
     d = plan.device_data(5)
-    full = check_p2p_tile(plan, d, ql, 1e-5, "points_path", time_it=True)
-    full64 = check_p2p_tile(plan, d, ql.double(), 1e-12, "points_path")
+    full = check_p2p_tile(plan, p2p_tables(d, ql), 1e-5, "points_path",
+                          time_it=True)
+    full64 = check_p2p_tile(plan, p2p_tables(d, ql.double()), 1e-12,
+                            "points_path")
     torch.cuda.empty_cache()
 
     torch.cuda.reset_peak_memory_stats()
@@ -1420,8 +1523,9 @@ def main():
 
     emit({"phase": "previous_times", "measured_in_this_run": False,
           "source": "PERF.md, table of TPU kernels, before the last "
-                    "redesign (f32, NVIDIA H100 80GB HBM3, 700.00 W, one "
-                    "synchronised call per sample)",
+                    "redesign (f32, NVIDIA H100 80GB HBM3, 700.00 W; one "
+                    "synchronised call per sample but for p2p_tile, "
+                    "timed back to back)",
           "ms": PREVIOUS_MS})
     emit({"kernels": entries})
     print(env["gpu"], flush=True)

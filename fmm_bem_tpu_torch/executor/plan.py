@@ -62,10 +62,10 @@ from fmm_bem_tpu_torch.ops.near_panel import (
     build_near_panels,
     build_near_panels_on_device,
     chunk_row_ptr,
+    leaf_counts,
     panel_matvec,
 )
 from fmm_bem_tpu_torch.ops.otf_tile import (
-    leaf_counts,
     otf_leaf_tiles,
     pack_otf_src,
     pack_otf_tgt,
@@ -1356,6 +1356,12 @@ class FmmPlan:
             src_sorted, row_ptr = self._p2p_rows
             d["p2p_src_sorted"] = self._tensor(src_sorted, torch.int32)
             d["p2p_row_ptr"] = self._tensor(row_ptr, torch.int32)
+            # real points per leaf, 0 for the dummy tile: the kernel
+            # walks only those (one table: targets and sources share
+            # the single tree)
+            d["p2p_cnt"] = self._tensor(
+                leaf_counts(self.src.leaf_body_mask), torch.int32
+            )
             # plan-constant [nl, 3, K] leaf xyz tiles for the packed
             # charge ride-along (ops/p2p_tile.pack_xyzq)
             d["p2p_xyz3"] = self._tensor(
@@ -1842,11 +1848,10 @@ class FmmPlan:
         materialising npairs*[K, K] planes in device memory."""
         xyzq = pack_xyzq(d["p2p_xyz3"], q_t.reshape(nl, 1, K))
         out = p2p_leaf_tiles(
-            xyzq, d["p2p_row_ptr"], d["p2p_src_sorted"], self.kernel.eps2
-        )  # [nl, 4, K] in leaf order
-        out_rows = out.permute(0, 2, 1).reshape(nl * K, 4)
-        # padded slots hold kernel values at dummy bodies — zero them
-        return torch.where(d["t_slot_mask"][:, None], out_rows, 0.0)
+            xyzq, d["p2p_row_ptr"], d["p2p_src_sorted"], self.kernel.eps2,
+            d["p2p_cnt"],
+        )  # [nl, 4, K] in leaf order, padded slots exactly 0
+        return out.permute(0, 2, 1).reshape(nl * K, 4)
 
     # ------------------------------------------------------------------
     # public API

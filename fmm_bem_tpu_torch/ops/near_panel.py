@@ -105,6 +105,19 @@ def chunk_row_ptr(chunk_tgt, nl_t):
     return np.searchsorted(chunk_tgt, np.arange(nl_t + 1)).astype(np.int32)
 
 
+def leaf_counts(mask):
+    """Count table [nl + 1] int32 of a leaf body mask [nl, K]: the real
+    slots of each leaf, then 0 for the closing dummy tile.  Raises if a
+    leaf's real slots do not lead its tile (``mask[l] == arange(K) <
+    count[l]``), which is what the leaf-tile kernels ``otf_tile`` and
+    ``p2p_tile`` rely on."""
+    mask = np.asarray(mask, bool)
+    cnt = mask.sum(axis=1)
+    if not np.array_equal(mask, np.arange(mask.shape[1]) < cnt[:, None]):
+        raise ValueError("leaf_counts: real slots do not lead every tile")
+    return np.append(cnt, 0).astype(np.int32)
+
+
 @dataclasses.dataclass
 class NearPanels:
     """Host-side chunk structure; ``device()`` uploads the arrays."""

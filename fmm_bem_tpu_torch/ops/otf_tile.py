@@ -18,9 +18,9 @@ Packed source-tile layout [nl+1, CS, K] with CS = 4*KQ + 3
 Target tiles [nl+1, 4, K]: xyz rows + BC flag row.  Charges are a
 separate [nl, K] table, rebuilt per matvec.  Padded panels (and the
 closing dummy tile) sit at a far sentinel position.  The real panels of
-a leaf lead its tile, so a count table [nl+1] (``leaf_counts``; the
-closing dummy tile counts 0) says which slots are real: the kernel
-walks only those.
+a leaf lead its tile, so a count table [nl+1]
+(``ops/near_panel.py::leaf_counts``; the closing dummy tile counts 0)
+says which slots are real: the kernel walks only those.
 
 On CUDA tensors the product runs as the hand-written kernel of
 ``csrc/otf_tile.cu``; on CPU tensors it runs as the plain PyTorch
@@ -75,18 +75,6 @@ def pack_otf_tgt(xyz_tiled, bc_tiled, mask, dtype=np.float32):
     out[:nl, 3, :] = bc
     out[nl, :3, :] = SENTINEL
     return out
-
-
-def leaf_counts(mask):
-    """Count table [nl + 1] int32 of a leaf body mask [nl, K]: the real
-    slots of each leaf, then 0 for the closing dummy tile.  Raises if a
-    leaf's real slots do not lead its tile (``mask[l] == arange(K) <
-    count[l]``), which is what the kernel relies on."""
-    mask = np.asarray(mask, bool)
-    cnt = mask.sum(axis=1)
-    if not np.array_equal(mask, np.arange(mask.shape[1]) < cnt[:, None]):
-        raise ValueError("leaf_counts: real slots do not lead every tile")
-    return np.append(cnt, 0).astype(np.int32)
 
 
 def otf_leaf_tiles_reference(src_tab, ql, tgt_tab, row_ptr, src_idx, KQ,

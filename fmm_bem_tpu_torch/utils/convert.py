@@ -21,12 +21,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fmm_bem_tpu_torch.ops.near_panel import NearPanels, chunk_row_ptr
-from fmm_bem_tpu_torch.ops.otf_tile import (
+from fmm_bem_tpu_torch.ops.near_panel import (
+    NearPanels,
+    chunk_row_ptr,
     leaf_counts,
-    pack_otf_src,
-    pack_otf_tgt,
 )
+from fmm_bem_tpu_torch.ops.otf_tile import pack_otf_src, pack_otf_tgt
 
 
 def _to_torch(obj, device, dtype):

@@ -35,8 +35,8 @@ from fmm_bem_tpu.kernels.laplace_bem import LaplaceBEMKernel as JKernel
 from fmm_bem_tpu.ops.otf_tile import otf_superblock_bem
 from fmm_bem_tpu_torch.executor import plan as tplan_mod
 from fmm_bem_tpu_torch.kernels.laplace_bem import LaplaceBEMKernel as TKernel
+from fmm_bem_tpu_torch.ops.near_panel import leaf_counts
 from fmm_bem_tpu_torch.ops.otf_tile import (
-    leaf_counts,
     otf_leaf_tiles,
     otf_leaf_tiles_reference,
 )

@@ -11,6 +11,10 @@ said.  Inputs are made with numpy from a seed and go through both sides.
 - ``FmmPlan.apply`` on 4,096 points against the JAX plan (1e-12) and
   against direct summation (p = 10: 3e-5 at the default opening angle,
   1e-6 at theta = 0.35).
+- The count table of the leaf-tile P2P (``p2p_cnt``, ``leaf_counts``)
+  on both packages' point plans; the plain version with it against the
+  plain version without it (1e-15, padded target slots exactly 0) and
+  against the interpreted Pallas kernel; the kernel's argument checks.
 - The unit kernel: far plus near count every pair exactly once.
 """
 
@@ -29,7 +33,9 @@ from fmm_bem_tpu.ops.p2p_tile import p2p_superblock_laplace
 from fmm_bem_tpu.ops.p2p_tile import pack_xyzq as j_pack_xyzq
 from fmm_bem_tpu_torch.kernels.laplace import LaplaceKernel as TLaplace
 from fmm_bem_tpu_torch.kernels.unit import UnitKernel as TUnit
+from fmm_bem_tpu_torch.ops.near_panel import leaf_counts
 from fmm_bem_tpu_torch.ops.p2p_tile import (
+    check_kernel_args,
     p2p_leaf_tiles,
     p2p_leaf_tiles_reference,
     pack_xyzq,
@@ -222,8 +228,10 @@ def test_plain_p2p_matches_jax_batched_pass(points):
     # chunking only moves the order of the per-leaf sums
     xyzq = pack_xyzq(d["p2p_xyz3"], tt(ql)[:, None, :])
     a = p2p_leaf_tiles_reference(
-        xyzq, d["p2p_row_ptr"], d["p2p_src_sorted"], 1e-8, chunk=37)
-    b = p2p_leaf_tiles(xyzq, d["p2p_row_ptr"], d["p2p_src_sorted"], 1e-8)
+        xyzq, d["p2p_row_ptr"], d["p2p_src_sorted"], 1e-8, d["p2p_cnt"],
+        chunk=37)
+    b = p2p_leaf_tiles(xyzq, d["p2p_row_ptr"], d["p2p_src_sorted"], 1e-8,
+                       d["p2p_cnt"])
     assert rel(a, b.numpy()) <= 1e-14
 
 
@@ -255,6 +263,139 @@ def test_plain_p2p_matches_interpreted_pallas_kernel():
     for c in range(4):
         scale = np.abs(want[:, c][mask]).max()
         assert np.abs(got[:, c] - want[:, c])[mask].max() <= 1e-5 * scale
+
+
+# ----------------------------------------------------------------------
+# the count table: the kernel walks only the real points of each leaf
+# ----------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def points600():
+    return PointPair(600, 22, dtype="float32", ncrit=16, max_p=4,
+                     leaf_pad=20)
+
+
+@pytest.mark.parametrize("name", ["points", "points600"])
+def test_point_leaf_counts_hold_on_both_plans(name, request):
+    """Real slots lead every tile of both packages' point plans, the two
+    give the same table, and ``device_data`` carries it as ``p2p_cnt``
+    (int32, [nl + 1], 0 for the dummy tile)."""
+    pair = request.getfixturevalue(name)
+    mask = np.asarray(pair.tp.src.leaf_body_mask)
+    cnt = leaf_counts(mask)
+    np.testing.assert_array_equal(
+        cnt, leaf_counts(np.asarray(pair.jp.src.leaf_body_mask)))
+    np.testing.assert_array_equal(cnt[:-1], mask.sum(axis=1))
+    assert cnt[-1] == 0 and (cnt[:-1] < mask.shape[1]).any()
+    for p in (3, 4):
+        d = pair.tp.device_data(p)
+        assert d["p2p_cnt"].dtype == torch.int32
+        np.testing.assert_array_equal(d["p2p_cnt"].numpy(), cnt)
+
+
+@pytest.mark.parametrize("name", ["points", "points600"])
+def test_plain_p2p_with_counts_matches_without(name, request):
+    """The count table changes nothing on real slots (1e-15) and makes
+    padded target slots exactly 0, also when the padded slots carry
+    charges and positions that would count if they were walked."""
+    pair = request.getfixturevalue(name)
+    tp = pair.tp
+    d = tp.device_data(4)
+    ql = torch.tensor(pair.leaf_charges(), dtype=d["p2p_xyz3"].dtype)
+    xyzq = pack_xyzq(d["p2p_xyz3"], ql[:, None, :])
+    args = (d["p2p_row_ptr"], d["p2p_src_sorted"], tp.kernel.eps2)
+    cnt = d["p2p_cnt"]
+    without = p2p_leaf_tiles_reference(xyzq, *args)
+    with_cnt = p2p_leaf_tiles_reference(xyzq, *args, cnt=cnt)
+    mask = torch.as_tensor(tp.src.leaf_body_mask)
+    real = mask[:, None, :].expand_as(with_cnt)
+    err = (with_cnt - without)[real].abs().max()
+    assert float(err) <= 1e-15 * float(without[real].abs().max())
+    assert bool((with_cnt[~real] == 0).all())
+    assert bool((without[~real] != 0).any())  # masked only by the table
+    # the entry point on CPU tensors is the plain version, table and all
+    assert torch.equal(p2p_leaf_tiles(xyzq, *args, cnt), with_cnt)
+    # slots past the count are not read
+    noisy = xyzq.clone()
+    pad = ~torch.cat([mask, torch.zeros_like(mask[:1])])
+    rng = np.random.default_rng(3)
+    for row in range(4):
+        noisy[:, row][pad] = torch.tensor(
+            rng.uniform(0, 1, int(pad.sum())), dtype=noisy.dtype)
+    assert torch.equal(p2p_leaf_tiles_reference(noisy, *args, cnt=cnt),
+                       with_cnt)
+
+
+def test_plain_p2p_with_counts_matches_interpreted_pallas_kernel(points600):
+    """f32: the plain version given the count table against the JAX
+    package's super-block kernel run by the Pallas interpreter, on real
+    slots, to 1e-5 of each component's max."""
+    jp, tp = points600.jp, points600.tp
+    ql = points600.leaf_charges().astype(np.float32)
+    jd = jp.device_data(4)
+    jxyzq = j_pack_xyzq(jd["p2p_sb_xyz3"], jnp.asarray(ql)[:, None, :])
+    want = np.asarray(p2p_superblock_laplace(
+        jxyzq,
+        {"loc_src": jd["p2p_sb_loc_src"], "loc_tgt": jd["p2p_sb_loc_tgt"],
+         "cmeta": jd["p2p_sb_cmeta"]},
+        jp._p2p_sb, jp.kernel.eps2, interpret=True,
+    )[jd["p2p_sb_rowof"]])
+    d = tp.device_data(4)
+    xyzq = pack_xyzq(d["p2p_xyz3"], torch.tensor(ql)[:, None, :])
+    got = p2p_leaf_tiles_reference(
+        xyzq, d["p2p_row_ptr"], d["p2p_src_sorted"], tp.kernel.eps2,
+        cnt=d["p2p_cnt"]).numpy()
+    mask = tp.src.leaf_body_mask
+    assert got.shape == want.shape and (~mask).any()
+    for c in range(4):
+        scale = np.abs(want[:, c][mask]).max()
+        assert np.abs(got[:, c] - want[:, c])[mask].max() <= 1e-5 * scale
+        assert (got[:, c][~mask] == 0).all()
+
+
+def kernel_args(pair):
+    d = pair.tp.device_data(4)
+    xyzq = pack_xyzq(d["p2p_xyz3"],
+                     torch.zeros_like(d["p2p_xyz3"][:, :1]))
+    return xyzq, d["p2p_row_ptr"], d["p2p_src_sorted"], d["p2p_cnt"]
+
+
+@pytest.mark.parametrize("fault,exc", [
+    ("no_cnt", ValueError), ("cnt_int64", TypeError),
+    ("cnt_short", ValueError), ("cnt_strided", ValueError),
+    ("row_ptr_int64", TypeError), ("xyzq_float16", TypeError),
+    ("xyzq_rows", ValueError), ("row_ptr_long", ValueError),
+])
+def test_kernel_argument_checks(points600, fault, exc):
+    """What the CUDA entry point checks before it loads the kernel,
+    held on CPU tensors: a missing, mistyped or misshapen count table
+    (or any other argument the kernel does not take) raises."""
+    xyzq, row_ptr, src_idx, cnt = kernel_args(points600)
+    nl = xyzq.shape[0] - 1
+    assert check_kernel_args(xyzq, row_ptr, src_idx, cnt) == (
+        len(row_ptr) - 1, xyzq.shape[2])
+    bad = {
+        "no_cnt": dict(cnt=None),
+        "cnt_int64": dict(cnt=cnt.long()),
+        "cnt_short": dict(cnt=cnt[:-1].contiguous()),
+        "cnt_strided": dict(cnt=torch.stack([cnt, cnt], 1)[:, 0]),
+        "row_ptr_int64": dict(row_ptr=row_ptr.long()),
+        "xyzq_float16": dict(xyzq=xyzq.half()),
+        "xyzq_rows": dict(xyzq=xyzq[:, :3].contiguous()),
+        "row_ptr_long": dict(row_ptr=torch.zeros(nl + 2, dtype=torch.int32)),
+    }[fault]
+    args = dict(xyzq=xyzq, row_ptr=row_ptr, src_idx=src_idx, cnt=cnt)
+    args.update(bad)
+    with pytest.raises(exc):
+        check_kernel_args(**args)
+
+
+def test_kernel_entry_refuses_other_devices(points600):
+    """Only CPU tensors take the plain version: any other device that
+    is not CUDA raises, with or without the table."""
+    xyzq, row_ptr, src_idx, cnt = (
+        t.to("meta") for t in kernel_args(points600))
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        p2p_leaf_tiles(xyzq, row_ptr, src_idx, 1e-8, cnt)
 
 
 @pytest.mark.parametrize("p", [5, 10])
