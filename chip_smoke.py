@@ -26,7 +26,20 @@ card, and drives the port's paths at full size:
   double-layer variant against 4 pi, the relaxed solve at p=8 with the
   order floor of 5 and the same solve at fixed p=8, the drag against
   Stokes' law, chained matvecs at p=8 and p=5, the profile.  Its near
-  field (3x3 blocks) goes through the chunk-contraction kernel.
+  field (3x3 blocks) goes through the chunk-contraction kernel;
+- the Yukawa path: the screened first-kind problem of the reference
+  program on the cached path's sphere of 131,072 panels
+  (``YukawaBEMKernel(K=3, kappa=0.125)``, ncrit=64, leaf_pad=64, f32,
+  max_p=8): the relaxed solve with tiers (3, 5, 8), the mean dphi/dn
+  against the interior analytic value, chained matvecs at p=8 and p=5,
+  the profiles, ``near_panel`` on its store, the same solve in f64; then
+  at 8,192 panels one f32 matvec against the f64 one at p=8 and p=5, and
+  the f32 solve against the f64 one;
+- the other point kernels at p=5 against direct summation:
+  ``YukawaKernel`` on 1,000,000 points, ``LaplaceCartesianKernel`` and
+  ``YukawaSphericalKernel`` on 100,000, and ``LaplaceKernel`` through
+  the treecode evaluator on 100,000 (its ``p2p_tile`` first held
+  against the plain version on that plan's tables).
 
 Each path's kernel launches are counted from zero just before it is
 driven and read just after.  Each phase prints one JSON line; any
@@ -34,14 +47,18 @@ failure exits non-zero.  There is no CPU fallback: without a GPU the
 script fails before it prints anything.
 
 ``--quick`` runs every path at a small size (8,192 panels, 50,000
-points, 2,048 Stokes panels) for a look of two minutes.
+points, 2,048 Stokes panels, the point kernels at a twentieth of their
+counts) for a look of a few minutes.
 """
 
 import argparse
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -56,12 +73,18 @@ if not torch.cuda.is_available():
 
 import fmm_bem_tpu_torch as fbt
 from fmm_bem_tpu_torch import native
-from fmm_bem_tpu_torch.config import default_p_tiers
+from fmm_bem_tpu_torch.config import Evaluator, default_p_tiers
 from fmm_bem_tpu_torch.bem.panels import make_panels
 from fmm_bem_tpu_torch.bem.triangulation import unit_sphere
+from fmm_bem_tpu_torch.kernels.cartesian import (
+    LaplaceCartesianKernel,
+    YukawaKernel,
+)
 from fmm_bem_tpu_torch.kernels.laplace import LaplaceKernel
 from fmm_bem_tpu_torch.kernels.laplace_bem import LaplaceBEMKernel
+from fmm_bem_tpu_torch.kernels.spherical_yukawa import YukawaSphericalKernel
 from fmm_bem_tpu_torch.kernels.stokes_bem import StokesBEMKernel
+from fmm_bem_tpu_torch.kernels.yukawa_bem import YukawaBEMKernel
 from fmm_bem_tpu_torch.ops import _build
 from fmm_bem_tpu_torch.ops import near_panel as npl
 from fmm_bem_tpu_torch.ops import otf_tile as otf
@@ -87,6 +110,8 @@ PEAK_SFU_PER_S = 132 * 16 * 1.98e9
 #: multiply-adds (6) = 18, + 1 rsqrt.
 OTF_FLOPS = {False: (10, 18), True: (13, 23)}  # kappa > 0: (G, dG)
 P2P_FLOPS = 18
+#: the point Laplace kernel's self-exclusion threshold on r^2
+P2P_EPS2 = LaplaceKernel.eps2
 #: the four kernels; their wrappers carry the launch counts
 WRAPPERS = {
     "near_panel": npl.panel_matvec_fused,
@@ -134,6 +159,46 @@ STOKES_DRAG_ERR_LIMIT = 5e-4
 #: predicts more than two minutes at four times the panels: the larger
 #: sphere is then not run
 STOKES_REC8_HOST_BUDGET_S = 120.0
+
+#: the Yukawa path: the reference program's operating point
+#: (examples/yukawa_bem.py: YukawaBEMKernel(K=3, kappa=0.125), theta=0.5,
+#: ncrit=64, max_p = max(6, 8) = 8, residual 1e-5, relaxed with the tiers
+#: default_p_tiers(8)), on the cached path's sphere with leaf_pad=64
+YUKAWA_KAPPA = 0.125
+YUKAWA_P = 8
+#: the mean dphi/dn against the interior value -(kappa coth kappa - 1):
+#: the JAX package's own bar at 512 panels (tests/test_yukawa.py)
+YUKAWA_ANALYTIC_LIMIT = 5e-2
+#: the f32 solve against the f64 one on the same sphere (recursion 6):
+#: the mean dphi/dn, the value the reference program checks, agrees to
+#: 1e-4 relative.  The solution vectors differ more, and by design: each
+#: solve stops at a residual of 1e-5 of a first-kind system whose
+#: right-hand side is a small difference (for kappa -> 0 the double
+#: layer on 1 is exactly the -2 pi self term), so two solves that stop
+#: after different iterations (f32 rounding slows the f32 one) differ by
+#: up to the condition number times 1e-5: 1.03e-3 in relative L2 on an
+#: NVIDIA H100 80GB HBM3 (700.00 W; mean 8.0e-7), 1.3e-3 in f32 on a
+#: CPU; the limit keeps a factor of ten
+YUKAWA_F32_F64_LIMIT = 1e-4
+YUKAWA_F32_F64_VECTOR_LIMIT = 1e-2
+#: one f32 matvec against the f64 one on the same vector at recursion 6,
+#: p=8 and p=5, relative L2, where the stopping point of a solve plays
+#: no part: 8.9e-8 to 1.9e-7 on an NVIDIA H100 80GB HBM3 (700.00 W) on
+#: the vectors 1 and a seeded normal one; the limit keeps a factor of ten
+YUKAWA_F32_F64_MATVEC_LIMIT = 2e-6
+#: the point kernels beside it (points uniform in the unit cube, p=5, the
+#: seeds of the points path), with their counts: (name, kernel,
+#: evaluator, points).  Each is held to three times the error the same
+#: kernel and order show on POINT_KERNEL_BASE points
+POINT_KERNEL_RUNS = (
+    ("yukawa", lambda: YukawaKernel(kappa=YUKAWA_KAPPA), Evaluator.FMM,
+     1_000_000),
+    ("laplace_cartesian", LaplaceCartesianKernel, Evaluator.FMM, 100_000),
+    ("yukawa_spherical", lambda: YukawaSphericalKernel(kappa=YUKAWA_KAPPA),
+     Evaluator.FMM, 100_000),
+    ("laplace_treecode", LaplaceKernel, Evaluator.TREECODE, 100_000),
+)
+POINT_KERNEL_BASE = 8192
 
 #: each kernel's time at its path's shapes in PERF.md's table before its
 #: last redesign (f32, NVIDIA H100 80GB HBM3 at 700.00 W): near_panel and
@@ -262,22 +327,26 @@ def nbytes_of(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def check_otf_tile(plan, ot, ql, kappa, tol, label, time_it=False):
+def check_otf_tile(plan, ot, ql, kappa, tol, label, time_it=False,
+                   plain_counts=False):
     """The otf_tile kernel against its plain version on the card.  The
     kernel reads the count tables of ``ot``; the plain version is given
     none and masks by the sentinel, so the two also hold the tables to
-    the tiles.  Padded target slots and target leaves without pairs
-    must come out exactly 0.  The f32 tolerance is stated relative to
-    the output's largest value: the kernel inverts r with rsqrtf (2 ulp)
-    where the plain version takes sqrt and divides, and the two add a
-    leaf's K * KQ * pairs terms in another order; f64 differs by the
-    order of the sums alone."""
+    the tiles (with ``plain_counts`` it reads the same tables: for bad
+    tables, which both read alike).  Padded target slots and target
+    leaves without pairs must come out exactly 0.  The f32 tolerance is
+    stated relative to the output's largest value: the kernel inverts r
+    with rsqrtf (2 ulp) where the plain version takes sqrt and divides,
+    and the two add a leaf's K * KQ * pairs terms in another order; f64
+    differs by the order of the sums alone."""
     KQ = (ot["sb_src"].shape[1] - 3) // 4
     args = (ot["sb_src"], ql, ot["sb_tgt"], ot["row_ptr"], ot["sslot"], KQ)
     got = otf.otf_leaf_tiles(*args, kappa=kappa, src_cnt=ot["src_cnt"],
                              tgt_cnt=ot["tgt_cnt"])
     torch.cuda.synchronize()
-    want = otf.otf_leaf_tiles_reference(*args, kappa=kappa)
+    counts = (dict(src_cnt=ot["src_cnt"], tgt_cnt=ot["tgt_cnt"])
+              if plain_counts else {})
+    want = otf.otf_leaf_tiles_reference(*args, kappa=kappa, **counts)
     if got.shape != want.shape or not torch.isfinite(got).all():
         fail(f"otf_tile[{label}]: bad output {tuple(got.shape)} "
              "(every element must be finite, padded slots included)")
@@ -398,8 +467,7 @@ def check_p2p_tile(plan, tb, tol, label, time_it=False):
     sources are added.  Every slot is compared; padded target slots and
     target leaves without pairs must be exactly 0 on both sides, and a
     second launch must give the same bits."""
-    args = (tb["xyzq"], tb["row_ptr"], tb["src_idx"], plan.kernel.eps2,
-            tb["cnt"])
+    args = (tb["xyzq"], tb["row_ptr"], tb["src_idx"], P2P_EPS2, tb["cnt"])
     got = p2p.p2p_leaf_tiles(*args)
     again = p2p.p2p_leaf_tiles(*args)
     torch.cuda.synchronize()
@@ -501,6 +569,129 @@ def p2p_edge_tables(tb, K, dtype):
     return tables, {"full": full, "one_point": one, "no_pairs": none,
                     "past_two_stages": big, "big_sources": big_sources,
                     "stage_cap": cap, "coincident": [int(a), int(b)]}
+
+
+#: seconds a kernel check on bad tables may take before the run fails:
+#: these small cases finish in milliseconds, and a walk that never ends
+#: (a segment planner that takes no pair) would hang the card instead
+BAD_TABLE_WATCHDOG_S = 60
+#: the bad tables each count-table kernel must survive with the result
+#: of the corrected tables: a count far above K (and above any stage's
+#: capacity), a negative count, source leaf indices past the table and
+#: below 0
+BAD_TABLES = ("count_above_K", "negative_count", "source_index_out_of_range")
+
+
+@contextlib.contextmanager
+def watchdog(seconds, what):
+    """Fail the run from a timer thread if the body has not finished in
+    ``seconds``: a hung kernel blocks the synchronise inside it."""
+    def expire():
+        sys.stderr.write(f"chip_smoke.py: FAILED: {what} did not finish "
+                         f"within {seconds} s\n")
+        sys.stderr.flush()
+        os._exit(1)
+
+    timer = threading.Timer(seconds, expire)
+    timer.daemon = True
+    timer.start()
+    try:
+        yield
+    finally:
+        timer.cancel()
+
+
+def spoil_tables(case, row_ptr, src_idx, counts, K):
+    """(bad, corrected) ``(row_ptr, src_idx, counts)`` on the card from a
+    pair list and its count tables (``(src_cnt, tgt_cnt)``, or one table
+    serving both sides): a source leaf of a pair and a target leaf with
+    pairs get a bad count, or two pairs of that leaf a bad source index.
+    The corrected tables hold what the kernels read from the bad ones:
+    counts clamped to [0, K], the pairs of a bad index dropped."""
+    rp, src = row_ptr.cpu(), src_idx.cpu()
+    cnt = [c.cpu() for c in counts]
+    npair = (rp[1:] - rp[:-1]).long()
+    tleaf = int(torch.nonzero(npair > 0)[1])
+    sleaf = int(src[int(rp[tleaf])])
+    bad = [rp, src.clone(), [c.clone() for c in cnt]]
+    good = [rp, src, [c.clone() for c in cnt]]
+    if case == "source_index_out_of_range":
+        hit = [int(rp[tleaf]), int(rp[tleaf + 1]) - 1]
+        bad[1][hit[0]] = len(cnt[0]) - 1 + 7
+        bad[1][hit[1]] = -2
+        keep = torch.ones(len(src), dtype=torch.bool)
+        keep[hit] = False
+        npair[tleaf] -= len(set(hit))
+        good[0] = torch.cat([torch.zeros(1, dtype=torch.int64),
+                             torch.cumsum(npair, 0)]).to(torch.int32)
+        good[1] = src[keep].contiguous()
+    else:
+        value, clamped = ((1 << 20, K) if case == "count_above_K"
+                          else (-3, 0))
+        for side, leaf in ((0, sleaf), (len(cnt) - 1, tleaf)):
+            bad[2][side][leaf] = value
+            good[2][side][leaf] = clamped
+
+    def dev(t):
+        rp_, src_, cnt_ = t
+        return rp_.to(DEV), src_.to(DEV), [c.to(DEV) for c in cnt_]
+
+    return dev(bad), dev(good)
+
+
+def check_bad_tables(ot, tb, ql, dtype, tol):
+    """The edge cases of the count tables for both kernels that walk by
+    them, each under ``watchdog``: every case must finish, agree with the
+    plain version on the same tables, and the plain version there must
+    give its result on the corrected tables."""
+    checks = []
+    K = ql.shape[1]
+    for case in BAD_TABLES:
+        bad, good = spoil_tables(case, ot["row_ptr"], ot["sslot"],
+                                 (ot["src_cnt"], ot["tgt_cnt"]), K)
+        KQ = (ot["sb_src"].shape[1] - 3) // 4
+        for kappa in (0.0, 0.5):
+            et = dict(ot, row_ptr=bad[0], sslot=bad[1], src_cnt=bad[2][0],
+                      tgt_cnt=bad[2][1])
+            label = f"bad_{case}_{dtype}"
+            t0 = time.time()
+            with watchdog(BAD_TABLE_WATCHDOG_S, f"otf_tile[{label}]"):
+                rec = check_otf_tile(None, et, ql, kappa, tol, label,
+                                     plain_counts=True)
+            rec["finished_s"] = time.time() - t0
+            args = (ot["sb_src"], ql, ot["sb_tgt"])
+            on_bad = otf.otf_leaf_tiles_reference(
+                *args, bad[0], bad[1], KQ, kappa, src_cnt=bad[2][0],
+                tgt_cnt=bad[2][1])
+            on_good = otf.otf_leaf_tiles_reference(
+                *args, good[0], good[1], KQ, kappa, src_cnt=good[2][0],
+                tgt_cnt=good[2][1])
+            rec["plain_bad_vs_corrected_rel"] = float(
+                (on_bad - on_good).abs().max() / on_good.abs().max())
+            checks.append(rec)
+    for case in BAD_TABLES:
+        bad, good = spoil_tables(case, tb["row_ptr"], tb["src_idx"],
+                                 (tb["cnt"],), tb["xyzq"].shape[2])
+        label = f"bad_{case}_{dtype}"
+        t0 = time.time()
+        with watchdog(BAD_TABLE_WATCHDOG_S, f"p2p_tile[{label}]"):
+            rec = check_p2p_tile(None, dict(tb, row_ptr=bad[0],
+                                            src_idx=bad[1], cnt=bad[2][0]),
+                                 tol, label)
+        rec["finished_s"] = time.time() - t0
+        on_bad = p2p.p2p_leaf_tiles_reference(
+            tb["xyzq"], bad[0], bad[1], P2P_EPS2, bad[2][0])
+        on_good = p2p.p2p_leaf_tiles_reference(
+            tb["xyzq"], good[0], good[1], P2P_EPS2, good[2][0])
+        rec["plain_bad_vs_corrected_rel"] = float(
+            (on_bad - on_good).abs().max() / on_good.abs().max())
+        checks.append(rec)
+    # the dropped pairs regroup the plain versions' sums: rounding only
+    worst = max(c["plain_bad_vs_corrected_rel"] for c in checks)
+    if worst > tol:
+        fail(f"a plain version reads bad tables other than as the "
+             f"corrected ones: rel {worst:.3e} (limit {tol:.0e})")
+    return checks
 
 
 def check_near_panel(panels, meta, nl_src, tol, label, time_it=False):
@@ -731,15 +922,19 @@ def phase_env():
     return rec
 
 
-def point_plan(n, seed, dtype="float32", ncrit=64):
-    """``LaplaceKernel`` plan on n points uniform in the unit cube, with
-    unit-mean random charges, both from a seeded numpy generator."""
+def point_plan(n, seed, dtype="float32", ncrit=64, kernel=LaplaceKernel,
+               evaluator=Evaluator.FMM):
+    """A point-kernel plan (``LaplaceKernel`` unless said) on n points
+    uniform in the unit cube, with unit-mean random charges, both from a
+    seeded numpy generator."""
     rng = np.random.default_rng(seed)
     pts = rng.uniform(0.0, 1.0, (n, 3))
     q = rng.uniform(0.5, 1.5, n)
     plan = fbt.FmmPlan(
-        LaplaceKernel(), {"xyz": pts},
-        fbt.FMMConfig(ncrit=ncrit, dtype=dtype, max_p=5), device=DEV,
+        kernel(), {"xyz": pts},
+        fbt.FMMConfig(ncrit=ncrit, dtype=dtype, max_p=5,
+                      evaluator=evaluator),
+        device=DEV,
     )
     return plan, pts, q
 
@@ -753,7 +948,8 @@ def phase_kernels_small():
     of ``OTF_SMALL_KQ`` on a recursion-4 one, p2p_tile on 20,000 points
     (then a full leaf, a leaf of one real point, a target leaf without
     pairs, a leaf with more sources than two stages hold, and coincident
-    points in two leaves of a pair),
+    points in two leaves of a pair), then both count-table kernels on bad
+    tables (``BAD_TABLES``, each under a watchdog),
     panel_contract and the two-stage route on the scalar store of that
     sphere, on both 3x3-block stores of a recursion-4
     Stokes sphere and on the synthetic stores of
@@ -839,7 +1035,27 @@ def phase_kernels_small():
         rec = check_p2p_tile(pplan, et, tol, "edge_points20000")
         rec["edge_leaves"] = leaves
         checks.append(rec)
+        # bad count tables and pair lists, each under a watchdog
+        ot = oplan.near_panels()[0]["otf_tiles"]
+        oql, _ = leaf_charges(oplan, tdt)
+        checks.extend(check_bad_tables(ot, tb, oql, dtype, tol))
+    if sum(c["case"].startswith("bad_") for c in checks) != 2 * 9:
+        fail("kernels_small lacks a bad-table case")
     return build_s, checks
+
+
+def run_solve(plan, b, cfg, **kw):
+    """``solve_plan`` on the card, timed.  Returns (the record every
+    solve prints, the solution)."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    x, info, _ = solve_plan(plan, b, cfg, **kw)
+    return {
+        "solve_s": time.time() - t0, "iterations": info.iterations,
+        "converged": bool(info.converged), "residual": info.residual,
+        "p_schedule": [int(h[2]) for h in info.history],
+        "residual_history": [float(h[1]) for h in info.history],
+    }, x
 
 
 def first_kind_solve(plan, n, p_fixed=None):
@@ -852,15 +1068,8 @@ def first_kind_solve(plan, n, p_fixed=None):
         residual=1e-5, max_iters=100, restart=100, max_p=10, p_min=1,
         p_tiers=(3, 5, 10),
     )
-    torch.cuda.synchronize()
-    t0 = time.time()
-    x1, info1, _ = solve_plan(plan, b1, cfg1, p_fixed=p_fixed)
-    rec = {
-        "solve_s": time.time() - t0, "iterations": info1.iterations,
-        "converged": bool(info1.converged), "residual": info1.residual,
-        "err": float(np.linalg.norm(x1 - 1.0) / np.sqrt(n)),
-        "p_schedule": [int(h[2]) for h in info1.history],
-    }
+    rec, x1 = run_solve(plan, b1, cfg1, p_fixed=p_fixed)
+    rec["err"] = float(np.linalg.norm(x1 - 1.0) / np.sqrt(n))
     return rec, x1, b1
 
 
@@ -908,11 +1117,9 @@ def phase_main_path(plan, n, p=5, chain=50, phase="main_path",
     # second kind: dGdn system (flipped BC), RHS = G . 1, solution 1
     b2 = plan.apply(ones, p=p)[:, 0].cpu().numpy()
     cfg2 = fbt.SolverConfig(residual=1e-5, max_p=p, max_iters=60, restart=60)
-    torch.cuda.synchronize()
-    t0 = time.time()
-    x2, info2, _ = solve_plan(plan, b2, cfg2, flipped=True, p_fixed=p)
-    solve2_s = time.time() - t0
-    err2 = float(np.linalg.norm(x2 - 1.0) / np.sqrt(n))
+    second, x2 = run_solve(plan, b2, cfg2, flipped=True, p_fixed=p)
+    err2 = second["solution_err"] = float(
+        np.linalg.norm(x2 - 1.0) / np.sqrt(n))
 
     # first kind: G system, RHS = dGdn . 1, solution 1; relaxed order
     first, x1, b1 = first_kind_solve(plan, n)
@@ -931,11 +1138,7 @@ def phase_main_path(plan, n, p=5, chain=50, phase="main_path",
         "tables_s": tables_s,
         "matvec_ms": chain_ms, "matvec_host_ms": chain_host_ms,
         "chain": chain,
-        "second_kind": {
-            "solve_s": solve2_s, "iterations": info2.iterations,
-            "converged": bool(info2.converged), "residual": info2.residual,
-            "solution_err": err2,
-        },
+        "second_kind": second,
         "first_kind_relaxed": first,
         "first_kind_fixed": fixed,
         "matvecs": calls["matvecs"], "kernel": kernel,
@@ -943,7 +1146,7 @@ def phase_main_path(plan, n, p=5, chain=50, phase="main_path",
         "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
     }
     emit(rec)
-    if not (info2.converged and first["converged"]):
+    if not (second["converged"] and first["converged"]):
         fail("a solve did not converge")
     if not (np.isfinite(x1).all() and np.isfinite(x2).all()):
         fail("a solution is not finite")
@@ -962,7 +1165,8 @@ def phase_main_path(plan, n, p=5, chain=50, phase="main_path",
 
 def phase_profile(plan, charges, p=5, phase="profile"):
     """The matvec's phases timed by CUDA events, then one matvec under
-    torch.profiler: top device operations, launches, busy time."""
+    torch.profiler: top device operations, launches, busy time; and the
+    device launches of the L2P and M2P phases alone."""
     mv, op4p, to_s, _, _ = plan._slot_ops(None)
     operand = op4p(p)
     d, aux, sf, tf = operand
@@ -1027,6 +1231,21 @@ def phase_profile(plan, charges, p=5, phase="profile"):
         for e in prof.key_averages()
         if e.device_type == DeviceType.CUDA
     }
+
+    def launches_of(fn):  # device launches of one phase alone
+        with profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        ) as one:
+            fn()
+            torch.cuda.synchronize()
+        return sum(int(e.count) for e in one.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+
+    phase_launches = {"l2p": launches_of(
+        lambda: plan._l2p_slots(d, aux, L, p))}
+    if len(plan.m2p_src):
+        phase_launches["m2p"] = launches_of(
+            lambda: plan._m2p_pass(d, tf, M, p, nl, K))
     busy_us = sum(v[0] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     rec = {
@@ -1044,6 +1263,7 @@ def phase_profile(plan, charges, p=5, phase="profile"):
             {"name": k[:120], "us": v[0], "calls": v[1]} for k, v in top
         ],
         "phase_ms": phase_ms,
+        "phase_launches": phase_launches,
     }
     rec["m2l_family_classes"] = (
         0 if plan.m2l_fam is None else len(plan.m2l_fam.cls_sp)
@@ -1304,39 +1524,15 @@ def path_points(npoints, nbase):
     )
 
 
-def stokes_solve(plan, fields, n, p_fixed=None):
-    """Uniform flow past the sphere: the single-layer system on
-    b = (4 pi, 0, 0), relaxed with the order floor and the tiers of the
-    reference program, or at the fixed order ``p_fixed``; the drag
-    sum(t_x * area) against Stokes' law 6 pi mu."""
-    b = np.tile([4.0 * np.pi, 0.0, 0.0], (n, 1)).reshape(-1)
-    cfg = fbt.SolverConfig(
-        residual=1e-5, max_iters=200, restart=200, max_p=STOKES_P,
-        p_min=STOKES_P_MIN, p_tiers=default_p_tiers(STOKES_P),
-    )
-    torch.cuda.synchronize()
-    t0 = time.time()
-    x, info, _ = solve_plan(plan, b, cfg, p_fixed=p_fixed)
-    solve_s = time.time() - t0
-    exact = 6.0 * np.pi * STOKES_MU
-    ok_shape = x.shape == (3 * n,) and bool(np.isfinite(x).all())
-    fx = float((x.reshape(n, 3)[:, 0] * fields["area"]).sum()) if ok_shape \
-        else float("nan")
-    return {
-        "solve_s": solve_s, "iterations": info.iterations,
-        "converged": bool(info.converged), "residual": info.residual,
-        "p_schedule": [int(h[2]) for h in info.history],
-        "finite_and_shaped": ok_shape,
-        "drag": fx, "drag_exact": exact, "drag_err": abs(fx - exact) / exact,
-    }
-
-
-def phase_stokes_path(plan, fields, n, chain, phase):
-    """The Stokes path through the entry points a user calls: the
-    right-hand side by ``apply_flipped_bc``, both solves by
-    ``solve_plan``, chained slot matvecs at the solve's order and at the
-    floor; the launches of ``panel_contract`` held against the matvecs
-    the plan ran."""
+def drive_slot_path(plan, kernel, orders, x0, chain, solves):
+    """Drive a BEM plan through the entry points a user calls, counting
+    the slot matvecs it runs: every launch count is set to 0, the
+    operand of the first of ``orders`` is built (``tables_s``),
+    ``solves()`` runs (right-hand sides and solves), then ``chain``
+    chained slot matvecs from ``x0`` (user order) at each of ``orders``,
+    normalised at every step.  Returns (what ``solves`` returned, the
+    record's fields); ``hold_launches`` holds the launches of the path's
+    near-field ``kernel`` to the matvecs."""
     calls = {"matvecs": 0}
     inner = plan._matvec_slots
 
@@ -1347,56 +1543,107 @@ def phase_stokes_path(plan, fields, n, chain, phase):
     plan._matvec_slots = counted
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()  # every kernel count, just before the run
+    try:
+        t0 = time.time()
+        mv, op4p, to_s, _, nslots = plan.solver_ops_slots()
+        op4p(orders[0])
+        torch.cuda.synchronize()
+        tables_s = time.time() - t0
+        out = solves()
+        matvec_ms, per_matvec = {}, {}
+        for p in orders:
+            operand = op4p(p)
+            x = to_s(x0)
+            for _ in range(2):
+                y = mv(operand, x, p)
+                x = y / torch.linalg.vector_norm(y)
+            torch.cuda.synchronize()
+            before = calls["matvecs"], launch_counts()[kernel]
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(chain):
+                y = mv(operand, x, p)
+                x = y / torch.linalg.vector_norm(y)
+            b.record()
+            torch.cuda.synchronize()
+            matvec_ms[f"p{p}"] = a.elapsed_time(b) / chain
+            per_matvec[f"p{p}"] = ((launch_counts()[kernel] - before[1])
+                                   / (calls["matvecs"] - before[0]))
+            if not torch.isfinite(x).all() or float(x.abs().max()) == 0.0:
+                fail(f"chained matvecs of {type(plan.kernel).__name__} "
+                     "gave non-finite or zero values")
+        counts = launch_counts()  # ... and read just after it
+    finally:
+        plan._matvec_slots = inner
+    return out, {
+        "nslots": nslots, "tables_s": tables_s, "matvec_ms": matvec_ms,
+        "chain": chain, "launches_per_matvec": per_matvec,
+        "matvecs": calls["matvecs"], "kernel": kernel,
+        "kernel_launches": counts[kernel], "launch_counts": counts,
+        "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
+    }
 
+
+def hold_launches(rec, path):
+    """Fail unless the path's kernel launched once per matvec the plan
+    ran, and no other kernel launched."""
+    kernel, counts = rec["kernel"], rec["launch_counts"]
+    others = sum(v for k, v in counts.items() if k != kernel)
+    if counts[kernel] == 0 or counts[kernel] != rec["matvecs"] or others:
+        fail(f"{kernel} launched {counts[kernel]} times in {rec['matvecs']} "
+             f"matvecs (all counts: {counts}): the {path} path did not go "
+             "through its kernel, and no other, once per matvec")
+
+
+def stokes_solve(plan, fields, n, p_fixed=None):
+    """Uniform flow past the sphere: the single-layer system on
+    b = (4 pi, 0, 0), relaxed with the order floor and the tiers of the
+    reference program, or at the fixed order ``p_fixed``; the drag
+    sum(t_x * area) against Stokes' law 6 pi mu."""
+    b = np.tile([4.0 * np.pi, 0.0, 0.0], (n, 1)).reshape(-1)
+    cfg = fbt.SolverConfig(
+        residual=1e-5, max_iters=200, restart=200, max_p=STOKES_P,
+        p_min=STOKES_P_MIN, p_tiers=default_p_tiers(STOKES_P),
+    )
+    rec, x = run_solve(plan, b, cfg, p_fixed=p_fixed)
+    exact = 6.0 * np.pi * STOKES_MU
+    ok_shape = x.shape == (3 * n,) and bool(np.isfinite(x).all())
+    fx = float((x.reshape(n, 3)[:, 0] * fields["area"]).sum()) if ok_shape \
+        else float("nan")
+    return {
+        **rec, "finite_and_shaped": ok_shape,
+        "drag": fx, "drag_exact": exact, "drag_err": abs(fx - exact) / exact,
+    }
+
+
+def phase_stokes_path(plan, fields, n, chain, phase):
+    """The Stokes path through the entry points a user calls: the
+    right-hand side by ``apply_flipped_bc``, both solves by
+    ``solve_plan``, chained slot matvecs at the solve's order and at the
+    floor; the launches of ``panel_contract`` held against the matvecs
+    the plan ran."""
     u = np.tile([1.0, 0.0, 0.0], (n, 1))
-    t0 = time.time()
-    rhs = plan.apply_flipped_bc(u, p=STOKES_P).cpu().numpy()
-    rhs_s = time.time() - t0
+
+    def solves():
+        t0 = time.time()
+        rhs = plan.apply_flipped_bc(u, p=STOKES_P).cpu().numpy()
+        rhs_s = time.time() - t0
+        return (rhs, rhs_s, stokes_solve(plan, fields, n),
+                stokes_solve(plan, fields, n, p_fixed=STOKES_P))
+
+    (rhs, rhs_s, relaxed, fixed), driven = drive_slot_path(
+        plan, "panel_contract", (STOKES_P, STOKES_P_MIN), u, chain, solves)
     rhs_err = float(np.abs(rhs[:, 0] - 4 * np.pi).mean() / (4 * np.pi))
-
-    t0 = time.time()
-    mv, op4p, to_s, _, nslots = plan.solver_ops_slots()
-    op4p(STOKES_P)
-    torch.cuda.synchronize()
-    tables_s = time.time() - t0
-    relaxed = stokes_solve(plan, fields, n)
-    fixed = stokes_solve(plan, fields, n, p_fixed=STOKES_P)
-
-    matvec_ms = {}
-    for p in (STOKES_P, STOKES_P_MIN):
-        operand = op4p(p)
-        x = to_s(u)
-        for _ in range(2):
-            y = mv(operand, x, p)
-            x = y / torch.linalg.vector_norm(y)
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(chain):
-            y = mv(operand, x, p)
-            x = y / torch.linalg.vector_norm(y)
-        b.record()
-        torch.cuda.synchronize()
-        matvec_ms[f"p{p}"] = a.elapsed_time(b) / chain
-        if not torch.isfinite(x).all() or float(x.abs().max()) == 0.0:
-            fail("chained Stokes matvecs gave non-finite or zero values")
-
-    counts = launch_counts()  # ... and read just after it
-    plan._matvec_slots = inner
     drag_limit = STOKES_DRAG_ERR_LIMIT * max(1.0, 32768 / n)
     rec = {
-        "phase": phase, "n_panels": n, "unknowns": 3 * n, "nslots": nslots,
+        "phase": phase, "n_panels": n, "unknowns": 3 * n,
         "p": STOKES_P, "p_min": STOKES_P_MIN, "mu": STOKES_MU,
-        "rhs_s": rhs_s, "tables_s": tables_s,
-        "rhs_err": rhs_err, "rhs_err_limit": STOKES_RHS_ERR_LIMIT,
+        "rhs_s": rhs_s, "rhs_err": rhs_err,
+        "rhs_err_limit": STOKES_RHS_ERR_LIMIT,
         "rhs_off_axis_max": float(np.abs(rhs[:, 1:]).max()),
         "relaxed": relaxed, "fixed_p": fixed,
-        "drag_err_limit": drag_limit,
-        "matvec_ms": matvec_ms, "chain": chain,
-        "matvecs": calls["matvecs"], "kernel": "panel_contract",
-        "kernel_launches": counts["panel_contract"], "launch_counts": counts,
-        "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
+        "drag_err_limit": drag_limit, **driven,
     }
     emit(rec)
     if rhs.shape != (n, 3) or not np.isfinite(rhs).all():
@@ -1411,14 +1658,7 @@ def phase_stokes_path(plan, fields, n, chain, phase):
                  f" above {drag_limit:.1e}")
     if min(relaxed["p_schedule"]) < STOKES_P_MIN:
         fail(f"an order below the floor: {relaxed['p_schedule']}")
-    others = sum(v for k, v in counts.items() if k != "panel_contract")
-    if counts["panel_contract"] == 0 or (
-        counts["panel_contract"] != calls["matvecs"]
-    ) or others:
-        fail(f"panel_contract launched {counts['panel_contract']} times in "
-             f"{calls['matvecs']} matvecs (all counts: {counts}): the "
-             "Stokes path did not go through its kernel, and no other, "
-             "once per matvec")
+    hold_launches(rec, "Stokes")
     return rec
 
 
@@ -1484,16 +1724,285 @@ def path_stokes_both(recursions, try_larger):
     return checks, entry
 
 
+def yukawa_plan(recursions, dtype):
+    """``YukawaBEMKernel`` plan on the unit sphere at the reference
+    program's operating point."""
+    fields = make_panels(unit_sphere(recursions), K=3)
+    plan = fbt.FmmPlan(
+        YukawaBEMKernel(K=3, kappa=YUKAWA_KAPPA), fields,
+        fbt.FMMConfig(theta=0.5, ncrit=64, leaf_pad=64, max_p=YUKAWA_P,
+                      dtype=dtype),
+        device=DEV,
+    )
+    return plan, len(fields["xyz"])
+
+
+def yukawa_solve(plan, n):
+    """The screened first-kind problem of examples/yukawa_bem.py: phi = 1
+    on the sphere, RHS = the flipped operator on 1 at p=8, the relaxed
+    solve; the mean dphi/dn against the interior analytic value.
+    Returns (record, solution)."""
+    ones = np.ones(n, np.dtype(plan.config.dtype))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    b = plan.apply_flipped_bc(ones, p=YUKAWA_P)[:, 0].cpu().numpy()
+    rhs_s = time.time() - t0
+    cfg = fbt.SolverConfig(
+        residual=1e-5, max_iters=200, restart=200, max_p=YUKAWA_P,
+        p_tiers=default_p_tiers(YUKAWA_P),
+    )
+    rec, x = run_solve(plan, b, cfg)
+    kappa = plan.kernel.kappa
+    exact = -(kappa / np.tanh(kappa) - 1.0)
+    ok = x.shape == (n,) and bool(np.isfinite(x).all())
+    mean = float(x.mean()) if ok else float("nan")
+    return {
+        "rhs_s": rhs_s, **rec, "finite_and_shaped": ok, "mean_dphi_dn": mean,
+        "analytic": exact, "analytic_err": abs(mean - exact) / abs(exact),
+    }, x
+
+
+def hold_yukawa_solve(sol, what):
+    if not (sol["converged"] and sol["finite_and_shaped"]):
+        fail(f"the {what} Yukawa solve: {sol}")
+    if not sol["analytic_err"] <= YUKAWA_ANALYTIC_LIMIT:
+        fail(f"the {what} Yukawa mean dphi/dn is {sol['analytic_err']:.3e} "
+             f"off the analytic value (limit {YUKAWA_ANALYTIC_LIMIT:.0e})")
+
+
+def phase_yukawa_path(plan, n, chain=20):
+    """The Yukawa BEM path through the entry points a user calls: the
+    right-hand side, the relaxed solve, chained slot matvecs at p=8 and
+    p=5; the launches of ``near_panel`` held against the matvecs the
+    plan ran.  Returns the solve's record."""
+    solve, driven = drive_slot_path(
+        plan, "near_panel", (YUKAWA_P, 5), np.ones(n, np.float32), chain,
+        lambda: yukawa_solve(plan, n)[0])
+    rec = {
+        "phase": "yukawa_path", "n_panels": n,
+        "kappa": plan.kernel.kappa, "p": YUKAWA_P,
+        "p_tiers": list(default_p_tiers(YUKAWA_P)),
+        "first_kind_relaxed": solve,
+        "analytic_limit": YUKAWA_ANALYTIC_LIMIT, **driven,
+    }
+    emit(rec)
+    hold_yukawa_solve(solve, "f32")
+    hold_launches(rec, "Yukawa")
+    return solve
+
+
+def phase_yukawa_f64_full(recursions, f32):
+    """The Yukawa solve once more in f64 on the path's sphere, beside the
+    f32 one (``f32``, its record): whether f32 rounding is what keeps
+    the f32 solve at p=8 there."""
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    plan, n = yukawa_plan(recursions, "float64")
+    host_build_s = time.time() - t0
+    torch.cuda.reset_peak_memory_stats()
+    sol, _ = yukawa_solve(plan, n)
+    del plan
+    rel = abs(f32["mean_dphi_dn"] - sol["mean_dphi_dn"]) / abs(
+        sol["mean_dphi_dn"])
+    emit({
+        "phase": "yukawa_f64_full", "n_panels": n,
+        "host_build_s": host_build_s, "f64": sol,
+        "f32": {k: f32[k] for k in ("iterations", "p_schedule", "residual",
+                                    "mean_dphi_dn")},
+        "mean_dphi_dn_f32_vs_f64_rel": rel, "limit": YUKAWA_F32_F64_LIMIT,
+        "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
+    })
+    hold_yukawa_solve(sol, f"f64 (recursion {recursions})")
+    if not rel <= YUKAWA_F32_F64_LIMIT:
+        fail(f"the f32 Yukawa mean dphi/dn is {rel:.3e} off the f64 one at "
+             f"recursion {recursions}")
+
+
+def phase_yukawa_f64(recursions):
+    """The Yukawa operator and solve on a smaller sphere in f32 and in
+    f64 (the JAX package on a CPU is no f32 oracle for whole matvecs, so
+    f32 is held to the port's own f64): one matvec each at p=8 and p=5
+    on the same two vectors (1 and a seeded normal one), then the
+    solves."""
+    torch.cuda.empty_cache()
+    plans = {dt: yukawa_plan(recursions, dt)[0]
+             for dt in ("float32", "float64")}
+    n = plans["float64"].src.tree.num_bodies
+    vectors = {"ones": np.ones(n),
+               "normal": np.random.default_rng(23).standard_normal(n)}
+    matvec = {}
+    for name, v in vectors.items():
+        for p in (YUKAWA_P, 5):
+            y32 = plans["float32"].apply(v, p=p).double()
+            y64 = plans["float64"].apply(v, p=p)
+            matvec[f"{name}_p{p}"] = float((y32 - y64).norm() / y64.norm())
+    out = {dt: yukawa_solve(plan, n) for dt, plan in plans.items()}
+    del plans
+    x32, x64 = out["float32"][1], out["float64"][1]
+    m32 = out["float32"][0]["mean_dphi_dn"]
+    m64 = out["float64"][0]["mean_dphi_dn"]
+    rec = {
+        "phase": "yukawa_f64", "n_panels": n,
+        "matvec_f32_vs_f64_rel_l2": matvec,
+        "matvec_limit": YUKAWA_F32_F64_MATVEC_LIMIT,
+        "f32": out["float32"][0], "f64": out["float64"][0],
+        "mean_dphi_dn_f32_vs_f64_rel": abs(m32 - m64) / abs(m64),
+        "limit": YUKAWA_F32_F64_LIMIT,
+        "solution_f32_vs_f64_rel_l2": float(
+            np.linalg.norm(x32 - x64) / np.linalg.norm(x64)),
+        "solution_limit": YUKAWA_F32_F64_VECTOR_LIMIT,
+    }
+    emit(rec)
+    for dtype in out:
+        hold_yukawa_solve(out[dtype][0],
+                          f"{dtype} (recursion {recursions})")
+    worst = max(matvec.values())
+    if not worst <= YUKAWA_F32_F64_MATVEC_LIMIT:
+        fail(f"the f32 Yukawa matvec is {worst:.3e} off the f64 one "
+             f"(limit {YUKAWA_F32_F64_MATVEC_LIMIT:.0e}): {matvec}")
+    if not (rec["mean_dphi_dn_f32_vs_f64_rel"] <= YUKAWA_F32_F64_LIMIT
+            and rec["solution_f32_vs_f64_rel_l2"]
+            <= YUKAWA_F32_F64_VECTOR_LIMIT):
+        fail("the f32 Yukawa solve is not the f64 one: mean "
+             f"{rec['mean_dphi_dn_f32_vs_f64_rel']:.3e}, solution "
+             f"{rec['solution_f32_vs_f64_rel_l2']:.3e}")
+
+
+def path_yukawa(recursions, small_recursions):
+    """The Yukawa BEM path: plan build (per-level translation classes),
+    ``near_panel`` on its store of screened entries, the solve and the
+    chained matvecs, the profiles at p=8 and p=5, the solve in f64; then
+    f32 against f64 on a smaller sphere.  Returns the near_panel checks
+    on this path's store."""
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    plan, n = yukawa_plan(recursions, "float32")
+    host_build_s = time.time() - t0
+    t0 = time.time()
+    panels, meta = plan.near_panels()
+    torch.cuda.synchronize()
+    fam = plan.m2l_fam
+    emit_plan_build(
+        "yukawa_plan_build", plan, n, host_build_s,
+        near_store_s=time.time() - t0,
+        near_store_bytes=nbytes_of(panels["A"]),
+        m2m_octant_matrices=len(plan.src.m2m_mats),
+        m2l_classes=len(plan.m2l_classes.src),
+        m2l_family_classes=0 if fam is None else len(fam.cls_sp),
+        host_class_operator_bytes_f64=int(
+            plan.m2l_classes.mats.nbytes + (0 if fam is None
+                                            else fam.mats.nbytes)),
+    )
+    nl = len(plan.leaf_ids)
+    near = check_near_panel(panels, meta, nl, 1e-5, "yukawa_path",
+                            time_it=True)
+    torch.cuda.empty_cache()
+    solve = phase_yukawa_path(plan, n)
+    ones = np.ones(n, np.float32)
+    phase_profile(plan, ones, p=YUKAWA_P, phase="yukawa_profile")
+    phase_profile(plan, ones, p=5, phase="yukawa_profile_p5")
+    del plan, panels
+    phase_yukawa_f64_full(recursions, solve)
+    phase_yukawa_f64(small_recursions)
+    return [near]
+
+
+def path_point_kernels(scale):
+    """The other point kernels and the treecode evaluator: one ``apply``
+    each at p=5 (the count of ``POINT_KERNEL_RUNS`` times ``scale``),
+    errors of potential and force against direct summation in f64 on
+    1,000 targets, held to three times the error the same kernel shows on
+    ``POINT_KERNEL_BASE`` points.  The Yukawa kernels run no hand-written
+    kernel (their near field is the kernel's own batched ``p2p_block``,
+    as in the JAX package); the treecode's near field is ``p2p_tile``,
+    once per apply, and is first held against its plain version on that
+    plan's tables, at f32 and f64."""
+    recs = []
+    for name, kernel, evaluator, npoints in POINT_KERNEL_RUNS:
+        torch.cuda.empty_cache()
+        nbase = min(POINT_KERNEL_BASE, int(npoints * scale))
+        base, bpts, bq = point_plan(nbase, 31, kernel=kernel,
+                                    evaluator=evaluator)
+        base_err = sample_errors(base, bpts, bq, base.apply(bq, p=5))
+        del base
+        n = int(npoints * scale)
+        t0 = time.time()
+        plan, pts, q = point_plan(n, 32, kernel=kernel, evaluator=evaluator)
+        host_build_s = time.time() - t0
+        if evaluator == Evaluator.TREECODE:
+            # p2p_tile at the shapes the treecode plan gives it
+            ql, _ = leaf_charges(plan, torch.float32)
+            d = plan.device_data(5)
+            checks = [
+                check_p2p_tile(plan, p2p_tables(d, ql), 1e-5, name,
+                               time_it=True),
+                check_p2p_tile(plan, p2p_tables(d, ql.double()), 1e-12, name),
+            ]
+            del ql, d
+            torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()  # every kernel count, just before the run
+        t0 = time.time()
+        out = plan.apply(q, p=5)
+        torch.cuda.synchronize()
+        first_apply_s = time.time() - t0
+        counts = launch_counts()  # ... and read just after it
+        apply_ms = gpu_ms(lambda: plan.apply(q, p=5), 2, 1, batches=1)
+        err_pot, err_force = sample_errors(plan, pts, q, out)
+        rec = {
+            "phase": f"point_kernel_{name}",
+            "kernel": type(plan.kernel).__name__,
+            "evaluator": evaluator.value, "n_points": n,
+            "count_before_cut": npoints, "p": 5,
+            "host_build_s": host_build_s, "first_apply_s": first_apply_s,
+            "apply_ms": apply_ms, "leaves": len(plan.leaf_ids),
+            "near_pairs": int(len(plan.p2p_src_slot)),
+            "m2l_pairs": int(len(plan.lists.m2l_pairs)),
+            "m2p_pairs": int(len(plan.m2p_src)),
+            "rel_l2_err_potential": err_pot, "rel_l2_err_force": err_force,
+            "sample": 1000,
+            "truncation_err_at": {"n_points": nbase, "potential": base_err[0],
+                                  "force": base_err[1]},
+            "limit": {"potential": 3 * base_err[0],
+                      "force": 3 * base_err[1]},
+            "launch_counts": counts,
+            "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
+        }
+        emit(rec)
+        recs.append(rec)
+        if out.shape != (n, 4) or not torch.isfinite(out).all():
+            fail(f"the {name} result is not finite values of shape [n, 4]")
+        if err_pot > 3 * base_err[0] or err_force > 3 * base_err[1]:
+            fail(f"{name}: errors {err_pot:.3e} / {err_force:.3e} above "
+                 f"three times the truncation error {base_err}")
+        want = dict.fromkeys(WRAPPERS, 0)
+        if evaluator == Evaluator.TREECODE:
+            want["p2p_tile"] = 1
+            if rec["m2l_pairs"] or not rec["m2p_pairs"]:
+                fail(f"the treecode plan has {rec['m2l_pairs']} M2L and "
+                     f"{rec['m2p_pairs']} M2P pairs")
+        if counts != want:
+            fail(f"one {name} apply launched {counts}, expected {want}")
+        if evaluator == Evaluator.TREECODE:
+            emit({"phase": "kernels", "kernel": "p2p_tile", "path": name,
+                  "checks": checks, "launches": counts["p2p_tile"]})
+        del plan, out
+    return recs
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
                     help="every path at a small size")
     args = ap.parse_args()
+    t_start = time.time()
     recursions, otf_recursions, npoints, nbase = 8, 9, 1_000_000, 32768
     stokes_recursions = 7
+    yukawa_recursions, yukawa_small, point_scale = 8, 6, 1.0
     if args.quick:
         recursions, otf_recursions, npoints, nbase = 6, 6, 50_000, 8192
         stokes_recursions = 5
+        yukawa_recursions, yukawa_small, point_scale = 6, 5, 0.05
 
     env = phase_env()
     build_s, checks = phase_kernels_small()
@@ -1520,6 +2029,15 @@ def main():
               "checks": path_checks,
               "launches_per_matvec": 1, "path_s": time.time() - t0})
         entries.append(entry)
+    # the Yukawa BEM path runs near_panel on a store of screened entries
+    t0 = time.time()
+    yukawa_checks = path_yukawa(yukawa_recursions, yukawa_small)
+    emit({"phase": "kernels", "kernel": "near_panel", "path": "yukawa",
+          "checks": yukawa_checks, "launches_per_matvec": 1,
+          "path_s": time.time() - t0})
+    t0 = time.time()
+    path_point_kernels(point_scale)
+    emit({"phase": "point_kernels_done", "path_s": time.time() - t0})
 
     emit({"phase": "previous_times", "measured_in_this_run": False,
           "source": "PERF.md, table of TPU kernels, before the last "
@@ -1527,6 +2045,7 @@ def main():
                     "synchronised call per sample but for p2p_tile, "
                     "timed back to back)",
           "ms": PREVIOUS_MS})
+    emit({"phase": "timing", "script_s": time.time() - t_start})
     emit({"kernels": entries})
     print(env["gpu"], flush=True)
     emit({"ok": True, "device": {

@@ -7,7 +7,11 @@ the reference package.
 
 - host side (numpy + the native C++ helper): Morton octree, dual-tree
   traversal, M2L classes/families, BEM near-field assembly;
-- device side (torch tensors): the slot-space FMM matvec, whose near
+- kernels: Laplace (spherical harmonics and Cartesian Taylor), Yukawa
+  (Cartesian Taylor and spherical Bessel), the Laplace, Yukawa and
+  Stokes BEM panel kernels, the unit kernel;
+- device side (torch tensors): the slot-space FMM matvec (or the
+  treecode's M2P far field), whose near
   field runs as a hand-written CUDA kernel on CUDA tensors and as its
   plain PyTorch version on CPU tensors: the cached BEM panel product
   (``csrc/near_panel.cu``), the on-the-fly BEM quadrature
@@ -35,6 +39,12 @@ from fmm_bem_tpu_torch.traversal.lists import (
     build_interaction_lists,
 )
 from fmm_bem_tpu_torch.executor.plan import FmmPlan
+from fmm_bem_tpu_torch.kernels.cartesian import (
+    LaplaceCartesianKernel,
+    YukawaKernel,
+)
+from fmm_bem_tpu_torch.kernels.spherical_yukawa import YukawaSphericalKernel
+from fmm_bem_tpu_torch.kernels.yukawa_bem import YukawaBEMKernel
 
 __version__ = "0.1.0"
 
@@ -46,6 +56,10 @@ __all__ = [
     "InteractionLists",
     "build_interaction_lists",
     "FmmPlan",
+    "LaplaceCartesianKernel",
+    "YukawaKernel",
+    "YukawaSphericalKernel",
+    "YukawaBEMKernel",
     "resolve_device",
     "torch_dtype",
 ]

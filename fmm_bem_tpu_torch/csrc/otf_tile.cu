@@ -14,7 +14,9 @@
 // weights (times area) and the panel normal; target tiles [nl + 1, 4, K]
 // hold x, y, z and the BC flag; charges are [nl_s, K].  The real panels
 // of a leaf lead its tile and the count tables src_cnt / tgt_cnt
-// [nl + 1] say how many there are: only those are read.
+// [nl + 1] say how many there are: only those are read.  The kernel
+// trusts neither table: each count is clamped to [0, K], and a source
+// leaf index outside [0, nl_s) reads as an empty leaf.
 //
 // What bounds it on this card: operations.  The needed work is
 // n_t x n_s x KQ kernel evaluations per near pair, 10 (G) to 18 (dG)
@@ -113,14 +115,19 @@ __device__ __forceinline__ int plan_segment(
     return np;
 }
 
-// Pairs [w0, w0 + WIN) of the leaf's range: source leaf and its count.
+// Pairs [w0, w0 + WIN) of the leaf's range: source leaf and its count,
+// clamped to [0, K] (an index outside [0, nl_s) is an empty leaf).  No
+// count the planner sees is then above K, and K <= cap (launch_one
+// refuses the launch otherwise), so every segment takes at least one
+// pair and the walk ends.
 __device__ __forceinline__ void load_window(
         const int* __restrict__ src_idx, const int* __restrict__ src_cnt,
-        int w0, int p_end, int* psl, int* pcnt) {
+        int nl_s, int K, int w0, int p_end, int* psl, int* pcnt) {
     for (int i = threadIdx.x; i < WIN && w0 + i < p_end; i += BLOCK) {
         const int sl = src_idx[w0 + i];
-        psl[i] = sl;
-        pcnt[i] = src_cnt[sl];
+        const bool ok = sl >= 0 && sl < nl_s;
+        psl[i] = ok ? sl : 0;
+        pcnt[i] = ok ? min(max(src_cnt[sl], 0), K) : 0;
     }
 }
 
@@ -219,7 +226,7 @@ otf_tile_kernel(const T* __restrict__ src_tab, const T* __restrict__ ql,
                 const int* __restrict__ src_idx,
                 const int* __restrict__ src_cnt,
                 const int* __restrict__ tgt_cnt, T* __restrict__ out, int K,
-                int KQ_rt, int cap, T kappa) {
+                int nl_s, int KQ_rt, int cap, T kappa) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const int KQ = KQC > 0 ? KQC : KQ_rt;
     const int per_stage = cap * (KQ + 1);  // Vec4 elements
@@ -231,7 +238,7 @@ otf_tile_kernel(const T* __restrict__ src_tab, const T* __restrict__ ql,
     const int tile0 = blockIdx.y * BLOCK;
     const int tid = threadIdx.x;
     const int lane = tid & 31;
-    const int n_here = min(max(tgt_cnt[leaf] - tile0, 0), BLOCK);
+    const int n_here = min(max(min(tgt_cnt[leaf], K) - tile0, 0), BLOCK);
     const int p_begin = row_ptr[leaf];
     const int p_end = row_ptr[leaf + 1];
     T* orow = out + (int64_t)leaf * K + tile0;
@@ -264,7 +271,7 @@ otf_tile_kernel(const T* __restrict__ src_tab, const T* __restrict__ ql,
     T acc_a = T(0), acc_b = T(0);
 
     int w0 = p_begin;
-    load_window(src_idx, src_cnt, w0, p_end, psl, pcnt);
+    load_window(src_idx, src_cnt, nl_s, K, w0, p_end, psl, pcnt);
     __syncthreads();
     int sl, cnt, off, n_cur, n_next = 0, np_next = 0;
     int pb = p_begin;
@@ -281,7 +288,8 @@ otf_tile_kernel(const T* __restrict__ src_tab, const T* __restrict__ ql,
             if (pb - w0 + 32 > WIN && w0 + WIN < p_end) {
                 __syncthreads();  // every warp has planned from the old one
                 w0 = pb;          // slide the window
-                load_window(src_idx, src_cnt, w0, p_end, psl, pcnt);
+                load_window(src_idx, src_cnt, nl_s, K, w0, p_end, psl,
+                            pcnt);
                 __syncthreads();
             }
             Vec4<T>* nxt = stage0 + (buf ^ 1) * per_stage;
@@ -337,8 +345,8 @@ otf_tile_kernel(const T* __restrict__ src_tab, const T* __restrict__ ql,
 template <typename T, int KQC, bool YUKAWA>
 int launch_one(const void* src_tab, const void* ql, const void* tgt_tab,
                const void* row_ptr, const void* src_idx, const void* src_cnt,
-               const void* tgt_cnt, void* out, int nl_t, int K, int KQ,
-               double kappa, void* stream) {
+               const void* tgt_cnt, void* out, int nl_t, int nl_s, int K,
+               int KQ, double kappa, void* stream) {
     // two stages of cap panels, (KQ + 1) Vec4 each, beside the pair
     // window: as many panels as fit, at most CAP_MAX and at least K (a
     // segment takes whole pairs)
@@ -358,20 +366,20 @@ int launch_one(const void* src_tab, const void* ql, const void* tgt_tab,
         <<<grid, BLOCK, smem, (cudaStream_t)stream>>>(
             (const T*)src_tab, (const T*)ql, (const T*)tgt_tab,
             (const int*)row_ptr, (const int*)src_idx, (const int*)src_cnt,
-            (const int*)tgt_cnt, (T*)out, K, KQ, cap, (T)kappa);
+            (const int*)tgt_cnt, (T*)out, K, nl_s, KQ, cap, (T)kappa);
     return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* src_tab, const void* ql, const void* tgt_tab,
            const void* row_ptr, const void* src_idx, const void* src_cnt,
-           const void* tgt_cnt, void* out, int nl_t, int K, int KQ,
-           double kappa, void* stream) {
+           const void* tgt_cnt, void* out, int nl_t, int nl_s, int K,
+           int KQ, double kappa, void* stream) {
     if (nl_t <= 0 || K <= 0) return (int)cudaSuccess;
     if (KQ <= 0) return (int)cudaErrorInvalidValue;
     const bool yukawa = kappa != 0.0;
 #define OTF_ARGS src_tab, ql, tgt_tab, row_ptr, src_idx, src_cnt, tgt_cnt, \
-                 out, nl_t, K, KQ, kappa, stream
+                 out, nl_t, nl_s, K, KQ, kappa, stream
     if (KQ == 3) {
         return yukawa ? launch_one<T, 3, true>(OTF_ARGS)
                       : launch_one<T, 3, false>(OTF_ARGS);
@@ -389,17 +397,19 @@ int launch(const void* src_tab, const void* ql, const void* tgt_tab,
 extern "C" int otf_tile_f32(const void* src_tab, const void* ql,
                             const void* tgt_tab, const void* row_ptr,
                             const void* src_idx, const void* src_cnt,
-                            const void* tgt_cnt, void* out, int nl_t, int K,
-                            int KQ, double kappa, void* stream) {
+                            const void* tgt_cnt, void* out, int nl_t,
+                            int nl_s, int K, int KQ, double kappa,
+                            void* stream) {
     return launch<float>(src_tab, ql, tgt_tab, row_ptr, src_idx, src_cnt,
-                         tgt_cnt, out, nl_t, K, KQ, kappa, stream);
+                         tgt_cnt, out, nl_t, nl_s, K, KQ, kappa, stream);
 }
 
 extern "C" int otf_tile_f64(const void* src_tab, const void* ql,
                             const void* tgt_tab, const void* row_ptr,
                             const void* src_idx, const void* src_cnt,
-                            const void* tgt_cnt, void* out, int nl_t, int K,
-                            int KQ, double kappa, void* stream) {
+                            const void* tgt_cnt, void* out, int nl_t,
+                            int nl_s, int K, int KQ, double kappa,
+                            void* stream) {
     return launch<double>(src_tab, ql, tgt_tab, row_ptr, src_idx, src_cnt,
-                          tgt_cnt, out, nl_t, K, KQ, kappa, stream);
+                          tgt_cnt, out, nl_t, nl_s, K, KQ, kappa, stream);
 }

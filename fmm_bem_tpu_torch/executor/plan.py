@@ -14,7 +14,7 @@ ops on the plan's device:
           class) + residual pair tiles, reduced by bucketed gather-sums
     L2L   octant-class matmuls per level, top-down
     L2P   slot-ordered linear table contracted with the leaf locals
-    M2P   fallback for level-skewed pairs
+    M2P   treecode far field, and fallback for level-skewed pairs
     near  BEM kernels: the cached leaf-panel store (ops/near_panel.py:
           the fused kernel for scalar entries, the two-stage route
           through the chunk-contraction kernel for the 3x3 blocks of
@@ -31,11 +31,15 @@ results live in padded leaf tiles end to end, scalar (Laplace BEM,
 point Laplace) or vector-valued (Stokes BEM with 3-vector charges and
 results, the point stokeslet): a kernel with ``charge_dim = c > 1``
 sees its charges as ``[n, c]`` and the solver vector as the flattened
-``[n*c]`` layout.  What the port does not cover raises
-``NotImplementedError`` at plan build: ``target_fields``, the treecode
-evaluator, the near-field-only operators, ``near_panel=False``, a BEM
-kernel whose result and charge dimensions differ, and kernels without a
-linear P2M (the stresslet).
+``[n*c]`` layout.  Kernels whose translations are not scale-invariant
+(the Yukawa kernels: kappa sets a length) get their M2M / L2L octant
+matrices and M2L class and family operators per level.  The treecode
+evaluator (``Evaluator.TREECODE``) replaces M2L / L2L / L2P by M2P from
+the far boxes straight to the target leaves.  What the port does not
+cover raises ``NotImplementedError`` at plan build: ``target_fields``,
+the near-field-only operators, ``near_panel=False``, a BEM kernel whose
+result and charge dimensions differ, and kernels without a linear P2M
+(the stresslet).
 
 The relaxation hook (``K.set_p(p)`` in the reference, GMRES.hpp:195-196)
 is an argument: every degree-ordered term dimension is prefix-sliced to
@@ -338,8 +342,6 @@ def _check_supported(kernel, config, target_fields):
 
     if target_fields is not None:
         no("target_fields (dual-tree evaluation)")
-    if config.evaluator != Evaluator.FMM:
-        no("Evaluator.TREECODE")
     if config.near_mode not in ("cached", "otf"):
         raise ValueError(
             f"FMMConfig.near_mode={config.near_mode!r}: expected 'cached' "
@@ -439,7 +441,8 @@ class FmmPlan:
                         stree = tree2
 
         self.lists: InteractionLists = build_interaction_lists(
-            stree, cfg.theta, tgt_tree=None, treecode=False,
+            stree, cfg.theta, tgt_tree=None,
+            treecode=cfg.evaluator == Evaluator.TREECODE,
         )
         sfields = {k: np.asarray(v)[stree.perm] for k, v in fields.items()}
 

@@ -86,7 +86,9 @@ def otf_leaf_tiles_reference(src_tab, ql, tgt_tab, row_ptr, src_idx, KQ,
     planes stay small at any pair count.  Padded panels are masked out
     exactly: those past the count tables ``src_cnt`` / ``tgt_cnt``
     (``leaf_counts``) where they are given, else those at the sentinel;
-    both give the same result."""
+    both give the same result.  Bad tables read as the kernel reads
+    them: a count outside [0, K] is clamped to it, and a source leaf
+    index outside [0, nl_s) is an empty leaf."""
     if (src_cnt is None) != (tgt_cnt is None):
         raise ValueError("otf_leaf_tiles_reference: give both count "
                          "tables or neither")
@@ -101,10 +103,13 @@ def otf_leaf_tiles_reference(src_tab, ql, tgt_tab, row_ptr, src_idx, KQ,
     start = int(row_ptr[0])
     tslot = torch.repeat_interleave(torch.arange(nl_t, device=dev), counts)
     sslot = src_idx[start : start + npairs].long()
+    src_ok = (sslot >= 0) & (sslot < ql.shape[0])
+    sslot = torch.where(src_ok, sslot, 0)
     half = 0.5 * SENTINEL
     for c0 in range(0, npairs, chunk):
         ts = tslot[c0 : c0 + chunk]
         ss = sslot[c0 : c0 + chunk]
+        ok = src_ok[c0 : c0 + chunk, None, None]
         t = tgt_tab[ts]                                  # [c, 4, KT]
         s = src_tab[ss]                                  # [c, CS, KS]
         c = t.shape[0]
@@ -117,6 +122,7 @@ def otf_leaf_tiles_reference(src_tab, ql, tgt_tab, row_ptr, src_idx, KQ,
             pos = torch.arange(K, device=dev)
             keep = (pos < tgt_cnt[ts].long()[:, None])[:, :, None] & (
                 pos < src_cnt[ss].long()[:, None])[:, None, :]
+        keep = keep & ok
         # d = target - quadrature point, [c, KT, KQ, KS] per dimension;
         # masked pairs get a harmless unit offset
         d = [
@@ -150,7 +156,7 @@ def otf_leaf_tiles_reference(src_tab, ql, tgt_tab, row_ptr, src_idx, KQ,
 
 
 _C_ARGTYPES = (
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
     + [ctypes.c_double, ctypes.c_void_p]
 )
 
@@ -165,37 +171,15 @@ def _kernel_fn(dtype):
     return fn
 
 
-def otf_leaf_tiles(src_tab, ql, tgt_tab, row_ptr, src_idx, KQ, kappa=0.0,
-                   src_cnt=None, tgt_cnt=None):
-    """On-the-fly near product from leaf-tiled charges.
-
-    Parameters
-    ----------
-    src_tab : [nl_s+1, 4*KQ+3, K] static source components
-        (``pack_otf_src``).
-    ql : [nl_s, K] per-matvec charges, padded slots zero.
-    tgt_tab : [nl_t+1, 4, K] target components (``pack_otf_tgt``; the
-        BC row differs per operator variant).
-    row_ptr : [nl_t + 1] int32, ``src_idx`` : [npairs] int32 — the
-        target-sorted pair list (source leaves in [0, nl_s)).
-    kappa : screening parameter (0 = Laplace).
-    src_cnt : [nl_s + 1] int32, tgt_cnt : [nl_t + 1] int32 — real slots
-        per leaf of each table (``leaf_counts``); the kernel walks only
-        those and needs both, the plain version takes the sentinel
-        without them.
-    Returns [nl_t, K] leaf potential tiles, padded target slots zero.
-
-    Tensors on the CPU take the plain version; CUDA tensors launch the
-    hand-written kernel (and only there is ``otf_leaf_tiles.launches``
-    incremented) or raise.
-    """
-    if ql.device.type == "cpu":
-        return otf_leaf_tiles_reference(
-            src_tab, ql, tgt_tab, row_ptr, src_idx, KQ, kappa,
-            src_cnt=src_cnt, tgt_cnt=tgt_cnt,
-        )
-    if ql.device.type != "cuda":
-        raise RuntimeError(f"otf_leaf_tiles: unsupported device {ql.device}")
+def check_kernel_args(src_tab, ql, tgt_tab, row_ptr, src_idx, KQ, src_cnt,
+                      tgt_cnt):
+    """What the kernel takes, checked before it is loaded: float32 or
+    float64 tables ``src_tab`` [nl_s+1, 4*KQ+3, K], ``ql`` [nl_s, K] and
+    ``tgt_tab`` [nl+1, 4, K] of one type; int32 ``row_ptr`` [nl_t + 1]
+    with nl_t <= nl, ``src_idx`` [npairs] and the count tables
+    ``src_cnt`` [nl_s+1] and ``tgt_cnt`` [nl+1] (required: the kernel
+    walks nothing else); all contiguous and on one device.  Raises
+    TypeError / ValueError / RuntimeError; returns (nl_t, K, KQ)."""
     if ql.dtype not in (torch.float32, torch.float64) or (
         src_tab.dtype != ql.dtype or tgt_tab.dtype != ql.dtype
     ):
@@ -236,7 +220,43 @@ def otf_leaf_tiles(src_tab, ql, tgt_tab, row_ptr, src_idx, KQ, kappa=0.0,
             f"{tuple(row_ptr.shape)} src_cnt {tuple(src_cnt.shape)} "
             f"tgt_cnt {tuple(tgt_cnt.shape)} do not fit KQ={KQ}"
         )
-    K = ql.shape[1]
+    return nl_t, ql.shape[1], KQ
+
+
+def otf_leaf_tiles(src_tab, ql, tgt_tab, row_ptr, src_idx, KQ, kappa=0.0,
+                   src_cnt=None, tgt_cnt=None):
+    """On-the-fly near product from leaf-tiled charges.
+
+    Parameters
+    ----------
+    src_tab : [nl_s+1, 4*KQ+3, K] static source components
+        (``pack_otf_src``).
+    ql : [nl_s, K] per-matvec charges, padded slots zero.
+    tgt_tab : [nl_t+1, 4, K] target components (``pack_otf_tgt``; the
+        BC row differs per operator variant).
+    row_ptr : [nl_t + 1] int32, ``src_idx`` : [npairs] int32 — the
+        target-sorted pair list (source leaves in [0, nl_s); another
+        index reads as an empty leaf).
+    kappa : screening parameter (0 = Laplace).
+    src_cnt : [nl_s + 1] int32, tgt_cnt : [nl_t + 1] int32 — real slots
+        per leaf of each table (``leaf_counts``), clamped to [0, K]; the
+        kernel walks only those and needs both, the plain version takes
+        the sentinel without them.
+    Returns [nl_t, K] leaf potential tiles, padded target slots zero.
+
+    Tensors on the CPU take the plain version; CUDA tensors launch the
+    hand-written kernel (and only there is ``otf_leaf_tiles.launches``
+    incremented) or raise.
+    """
+    if ql.device.type == "cpu":
+        return otf_leaf_tiles_reference(
+            src_tab, ql, tgt_tab, row_ptr, src_idx, KQ, kappa,
+            src_cnt=src_cnt, tgt_cnt=tgt_cnt,
+        )
+    if ql.device.type != "cuda":
+        raise RuntimeError(f"otf_leaf_tiles: unsupported device {ql.device}")
+    nl_t, K, KQ = check_kernel_args(
+        src_tab, ql, tgt_tab, row_ptr, src_idx, KQ, src_cnt, tgt_cnt)
     out = torch.empty((nl_t, K), dtype=ql.dtype, device=ql.device)
     if out.numel() == 0:
         return out
@@ -244,8 +264,8 @@ def otf_leaf_tiles(src_tab, ql, tgt_tab, row_ptr, src_idx, KQ, kappa=0.0,
         err = _kernel_fn(ql.dtype)(
             src_tab.data_ptr(), ql.data_ptr(), tgt_tab.data_ptr(),
             row_ptr.data_ptr(), src_idx.data_ptr(), src_cnt.data_ptr(),
-            tgt_cnt.data_ptr(), out.data_ptr(), nl_t, K, KQ, float(kappa),
-            torch.cuda.current_stream().cuda_stream,
+            tgt_cnt.data_ptr(), out.data_ptr(), nl_t, ql.shape[0], K, KQ,
+            float(kappa), torch.cuda.current_stream().cuda_stream,
         )
     otf_leaf_tiles.launches += 1
     if err != 0:

@@ -79,7 +79,9 @@ def p2p_leaf_tiles_reference(xyzq, row_ptr, src_idx, eps2, cnt=None,
     leaf's count are skipped and target slots past it come out exactly
     0, as in the kernel; without it every slot is summed (padded
     sources carry q = 0, padded targets hold values the caller
-    masks)."""
+    masks).  Bad tables read as the kernel reads them: a count outside
+    [0, K] is clamped to it, and a source leaf index outside [0, nl) is
+    an empty leaf."""
     nl_t = row_ptr.shape[0] - 1
     K = xyzq.shape[2]
     out = torch.zeros((nl_t, 4, K), dtype=xyzq.dtype, device=xyzq.device)
@@ -92,7 +94,8 @@ def p2p_leaf_tiles_reference(xyzq, row_ptr, src_idx, eps2, cnt=None,
         torch.arange(nl_t, device=xyzq.device), counts
     )
     sslot = src_idx[start : start + npairs].long()
-    real = sslot < xyzq.shape[0] - 1  # the dummy leaf is an empty tile
+    # the dummy leaf, and any index past it, is an empty tile
+    real = (sslot >= 0) & (sslot < xyzq.shape[0] - 1)
     pos = torch.arange(K, device=xyzq.device)
     for c0 in range(0, npairs, chunk):
         keep = real[c0 : c0 + chunk]

@@ -49,23 +49,61 @@ def _to_torch(obj, device, dtype):
     raise TypeError(f"operand_from_numpy: unsupported array dtype {a.dtype}")
 
 
+#: what a kernel carries beside its class: the parameters both packages'
+#: kernels must agree on before state crosses between them
+KERNEL_PARAMETERS = ("kappa", "K", "fine_K", "mu")
+
+
+def check_kernels_agree(ref_kernel, kernel):
+    """Raise ``ValueError`` unless the reference plan's kernel and this
+    package's are the same kernel: the same ``name`` and the same
+    parameters (``KERNEL_PARAMETERS``; the tables carried across were
+    built from them, and the kernel's own device operators use them)."""
+    names = (getattr(ref_kernel, "name", None), getattr(kernel, "name", None))
+    if names[0] != names[1]:
+        raise ValueError(f"kernels differ: {names[0]!r} against {names[1]!r}")
+    for attr in KERNEL_PARAMETERS:
+        a = getattr(ref_kernel, attr, None)
+        b = getattr(kernel, attr, None)
+        if a != b:
+            raise ValueError(
+                f"kernel {names[1]!r}: {attr} = {a!r} in the reference, "
+                f"{b!r} here"
+            )
+
+
 def operand_from_numpy(d, aux, panels, meta, device="cuda",
-                       dtype=torch.float32, fields=None):
+                       dtype=torch.float32, fields=None, kernels=None):
     """Build the ``_matvec_slots`` operand from numpy state.
 
     d : the reference ``plan.device_data(p)`` as numpy.
     aux : the reference ``plan.variant_aux_slots(p)`` as numpy, without
         its ``"panels"`` entry (or with: it is replaced).
     panels : that ``"panels"`` dict as numpy (``A``, ``pidx``,
-        ``chunk_tgt``).
+        ``chunk_tgt``), or ``None`` for a point kernel (no near store).
     meta : mapping or object with the near-panel meta fields ``nl_t,
-        m0, block_rows, npairs, rdim, cdim, KT, KS``.
-    fields : per-panel field arrays in Morton order (numpy) for the
-        target side of the M2P pass; may be omitted when the plan has
-        no level-skewed pairs.
+        m0, block_rows, npairs, rdim, cdim, KT, KS`` (``None`` with
+        ``panels``).
+    fields : per-body field arrays in Morton order (numpy): the target
+        side of the M2P pass and of a table-less L2P, both sides of a
+        point kernel's P2P; may be omitted for a BEM plan with no
+        level-skewed pairs.
+    kernels : optional ``(reference kernel, this package's kernel)``,
+        held to each other by ``check_kernels_agree`` first.
     Returns ``(d, aux, sf, tf)`` on ``device``.
     """
+    if kernels is not None:
+        check_kernels_agree(*kernels)
     device = torch.device(device)
+    out_aux = _to_torch(
+        {k: v for k, v in aux.items() if k != "panels"}, device, dtype
+    )
+    sf = _to_torch(
+        {k: v for k, v in (fields or {}).items() if k != "vertices"},
+        device, dtype,
+    )
+    if panels is None:
+        return _to_torch(d, device, dtype), out_aux, sf, sf
     get = meta.get if isinstance(meta, dict) else lambda k: getattr(meta, k)
     near_meta = NearPanels(
         A=None,
@@ -81,15 +119,8 @@ def operand_from_numpy(d, aux, panels, meta, device="cuda",
     dev_panels["A"] = torch.as_tensor(
         np.array(panels["A"]), dtype=dtype, device=device
     )
-    out_aux = _to_torch(
-        {k: v for k, v in aux.items() if k != "panels"}, device, dtype
-    )
     out_aux["panels"] = dev_panels
     out_aux["near_meta"] = near_meta
-    sf = _to_torch(
-        {k: v for k, v in (fields or {}).items() if k != "vertices"},
-        device, dtype,
-    )
     return _to_torch(d, device, dtype), out_aux, sf, sf
 
 

@@ -2,7 +2,9 @@
 interaction lists, M2L classes / families / tiles and near-field entries
 of the two plans, built from the same panels, are the same arrays —
 integers exactly, floats to 1e-14 (the port's host modules are copies of
-the numpy code).  Also: importing the port pulls in neither jax nor the
+the numpy code); the numpy parts of the Yukawa kernels (index tables,
+recurrences, Bessel series, translation matrices) are the same arrays
+bit for bit.  Also: importing the port pulls in neither jax nor the
 JAX package (at run time, and in the text of every source file), and
 what the port does not cover yet raises at plan build."""
 
@@ -22,9 +24,13 @@ import fmm_bem_tpu as J
 import fmm_bem_tpu_torch as T
 from fmm_bem_tpu.bem.panels import make_panels
 from fmm_bem_tpu.bem.triangulation import unit_sphere
+from fmm_bem_tpu.kernels import cartesian as j_ct
+from fmm_bem_tpu.kernels import spherical_yukawa as j_sy
 from fmm_bem_tpu.kernels.laplace_bem import LaplaceBEMKernel as JKernel
 from fmm_bem_tpu.ops import otf_tile as j_otf
 from fmm_bem_tpu_torch.config import Evaluator
+from fmm_bem_tpu_torch.kernels import cartesian as t_ct
+from fmm_bem_tpu_torch.kernels import spherical_yukawa as t_sy
 from fmm_bem_tpu_torch.kernels.laplace import LaplaceKernel as TLaplace
 from fmm_bem_tpu_torch.kernels.laplace_bem import LaplaceBEMKernel as TKernel
 from fmm_bem_tpu_torch.kernels.unit import UnitKernel as TUnit
@@ -196,6 +202,63 @@ def test_sorted_pair_rows(plans):
     assert row_ptr[0] == 0 and row_ptr[-1] == len(order)
 
 
+@pytest.mark.parametrize("p", [3, 8])
+@pytest.mark.parametrize("kappa", [0.0, 0.5])
+def test_cartesian_host_copies(kappa, p):
+    """Index tables, factorials, the numpy recurrences and the three
+    host translation matrices of ``kernels/cartesian.py``."""
+    for a, b in zip(j_ct.index_set(p), t_ct.index_set(p)):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(j_ct._factorial_prod(p),
+                                  t_ct._factorial_prod(p))
+    assert j_ct.num_terms(p) == t_ct.num_terms(p)
+    rng = np.random.default_rng(5)
+    dX = rng.uniform(-1, 1, (50, 3)) + np.array([0.0, 2.0, 0.0])
+    np.testing.assert_array_equal(j_ct.eval_coeffs_np(dX, kappa, p),
+                                  t_ct.eval_coeffs_np(dX, kappa, p))
+    np.testing.assert_array_equal(j_ct.powers_np(dX, p), t_ct.powers_np(dX, p))
+    jk, tk = j_ct.YukawaKernel(kappa), t_ct.YukawaKernel(kappa)
+    dr = np.array([0.25, -0.25, 0.25])
+    far = np.array([1.0, 0.5, -1.5])
+    for name, args in (("m2m_matrix", (dr, 0.25, 0.5)),
+                       ("m2l_matrix", (far, 0.25, 0.25)),
+                       ("l2l_matrix", (-dr, 0.5, 0.25))):
+        np.testing.assert_array_equal(getattr(jk, name)(*args, p),
+                                      getattr(tk, name)(*args, p))
+
+
+@pytest.mark.parametrize("p", [4, 8])
+def test_spherical_yukawa_host_copies(p):
+    """The Bessel series and polynomials, the fit sphere, the folded
+    basis and the projection-built translation matrices of
+    ``kernels/spherical_yukawa.py``."""
+    x = np.array([0.01, 0.3, 1.7, 6.0])
+    for fn in ("bessel_i", "bessel_k"):
+        np.testing.assert_array_equal(getattr(j_sy, fn)(x, p),
+                                      getattr(t_sy, fn)(x, p))
+    np.testing.assert_array_equal(j_sy._series_coeffs(p),
+                                  t_sy._series_coeffs(p))
+    np.testing.assert_array_equal(j_sy._kn_poly(p), t_sy._kn_poly(p))
+    for a, b in zip(j_sy._sphere_points(p), t_sy._sphere_points(p)):
+        np.testing.assert_array_equal(a, b)
+    dirs = j_sy._sphere_points(p)[0]
+    np.testing.assert_array_equal(j_sy._angular_flat(dirs, p),
+                                  t_sy._angular_flat(dirs, p))
+    # complex slot values [Q, T] at T = p(p+1)/2 terms
+    vals = np.exp(1j * np.arange(3.0 * p * (p + 1) // 2)).reshape(3, -1)
+    np.testing.assert_array_equal(j_sy._fold_real(vals, p),
+                                  t_sy._fold_real(vals, p))
+    jk = j_sy.YukawaSphericalKernel(0.5)
+    tk = t_sy.YukawaSphericalKernel(0.5)
+    dr = np.array([0.25, -0.25, 0.25])
+    far = np.array([1.0, 0.5, -1.5])
+    for name, args in (("m2m_matrix", (dr, 0.25, 0.5)),
+                       ("m2l_matrix", (far, 0.25, 0.25)),
+                       ("l2l_matrix", (-dr, 0.5, 0.25))):
+        np.testing.assert_array_equal(getattr(jk, name)(*args, p),
+                                      getattr(tk, name)(*args, p))
+
+
 PORT_SOURCES = sorted(
     str(p.relative_to(pathlib.Path(T.__file__).parents[1]))
     for p in [
@@ -228,6 +291,8 @@ def test_source_imports_no_jax_and_no_triton_at_module_level(source):
 
 def test_port_sources_were_found():
     assert len(PORT_SOURCES) > 25 and "chip_smoke.py" in PORT_SOURCES
+    for name in ("cartesian", "yukawa_bem", "spherical_yukawa"):
+        assert f"fmm_bem_tpu_torch/kernels/{name}.py" in PORT_SOURCES
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -266,13 +331,20 @@ class _NonLinearP2M(TKernel):
 @pytest.mark.parametrize(
     "what,kwargs",
     [
-        ("target_fields", {"target_fields": True}),
-        ("TREECODE", {"config": {"evaluator": Evaluator.TREECODE}}),
-        ("local_evaluation", {"config": {"local_evaluation": True}}),
-        ("block_diagonal", {"config": {"block_diagonal": True}}),
-        ("near_panel=False", {"config": {"near_panel": False}}),
-        ("vector-valued", {"kernel": _VectorBEMKernel(K=3)}),
-        ("linear P2M", {"kernel": _NonLinearP2M(K=3)}),
+        # the ids each case has been reported under
+        pytest.param("target_fields", {"target_fields": True},
+                     id="target_fields-kwargs0"),
+        pytest.param("local_evaluation",
+                     {"config": {"local_evaluation": True}},
+                     id="local_evaluation-kwargs2"),
+        pytest.param("block_diagonal", {"config": {"block_diagonal": True}},
+                     id="block_diagonal-kwargs3"),
+        pytest.param("near_panel=False", {"config": {"near_panel": False}},
+                     id="near_panel=False-kwargs4"),
+        pytest.param("vector-valued", {"kernel": _VectorBEMKernel(K=3)},
+                     id="vector-valued-kwargs5"),
+        pytest.param("linear P2M", {"kernel": _NonLinearP2M(K=3)},
+                     id="linear P2M-kwargs6"),
     ],
 )
 def test_unported_features_raise_at_plan_build(what, kwargs):
@@ -289,12 +361,22 @@ def test_unported_features_raise_at_plan_build(what, kwargs):
 
 
 @pytest.mark.parametrize(
-    "what", ["near_mode_otf", "point_kernel", "unit_kernel"])
+    "what", ["near_mode_otf", "point_kernel", "unit_kernel", "treecode"])
 def test_ported_features_build(what):
-    """What earlier slices refused: the on-the-fly near mode and kernels
-    without ``near_sparse`` (point kernels)."""
+    """What earlier slices refused: the on-the-fly near mode, kernels
+    without ``near_sparse`` (point kernels) and the treecode
+    evaluator."""
     fields = make_panels(unit_sphere(2), K=3)
-    if what == "near_mode_otf":
+    if what == "treecode":
+        fields = make_panels(unit_sphere(3), K=3)  # far pairs at ncrit 8
+        plan = T.FmmPlan(
+            TKernel(K=3), fields,
+            T.FMMConfig(ncrit=8, dtype="float64", max_p=4,
+                        evaluator=Evaluator.TREECODE),
+            device="cpu",
+        )
+        assert len(plan.lists.m2l_pairs) == 0 and len(plan.m2p_src) > 0
+    elif what == "near_mode_otf":
         plan = T.FmmPlan(
             TKernel(K=3), fields,
             T.FMMConfig(ncrit=8, dtype="float64", max_p=4, near_mode="otf"),

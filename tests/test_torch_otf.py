@@ -13,7 +13,9 @@ port, on the CPU (f64 unless said).
   sqrt, and both sum 64 x 3 terms per entry in another order).
 - The count tables the kernel walks by (real slots per leaf, a closing
   0) and the invariant they rest on: the real slots of a leaf lead its
-  tile, on the port's plans and on the JAX package's alike.
+  tile, on the port's plans and on the JAX package's alike.  Bad tables
+  (a count above K or below 0, a source index out of range) read as
+  the kernel reads them, and the kernel's argument checks.
 - A relaxed solve through the OTF operator takes the same iterations
   with the same orders as through the cached one.
 """
@@ -37,11 +39,14 @@ from fmm_bem_tpu_torch.executor import plan as tplan_mod
 from fmm_bem_tpu_torch.kernels.laplace_bem import LaplaceBEMKernel as TKernel
 from fmm_bem_tpu_torch.ops.near_panel import leaf_counts
 from fmm_bem_tpu_torch.ops.otf_tile import (
+    check_kernel_args,
     otf_leaf_tiles,
     otf_leaf_tiles_reference,
 )
 from fmm_bem_tpu_torch.solver.api import solve_plan
 from fmm_bem_tpu_torch.utils.convert import otf_panels_from_numpy
+
+from _torch_tables import BAD_TABLES, spoil_tables
 
 TOL = 1e-12
 
@@ -430,3 +435,84 @@ def test_otf_relaxed_solve_same_iterations_as_cached(sphere4):
     assert [h[2] for h in io.history] == [h[2] for h in ic.history]
     assert len({h[2] for h in io.history}) > 1  # the order did relax
     assert np.abs(xo - xc).max() <= 1e-9
+
+
+# ----------------------------------------------------------------------
+# bad tables and the kernel's argument checks
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("kappa", [0.0, 0.5])
+@pytest.mark.parametrize("case", BAD_TABLES)
+def test_plain_version_reads_bad_tables_as_the_kernel(sphere4, case, kappa):
+    """The plain version on bad count tables or a bad pair list gives
+    its result on the corrected tables; a source index out of range
+    adds nothing, in both masking modes."""
+    _, _, plan = sphere4
+    ot, ql = leaf_tile_inputs(plan, False)
+    K = ql.shape[1]
+    bad, good = spoil_tables(case, ot["row_ptr"], ot["sslot"],
+                             (ot["src_cnt"], ot["tgt_cnt"]), K)
+
+    def run(tabs, counts=True):
+        row_ptr, src_idx, (src_cnt, tgt_cnt) = tabs
+        return otf_leaf_tiles_reference(
+            ot["sb_src"], ql, ot["sb_tgt"], row_ptr, src_idx, plan._otf_KQ,
+            kappa=kappa, src_cnt=src_cnt if counts else None,
+            tgt_cnt=tgt_cnt if counts else None)
+
+    orig = (ot["row_ptr"], ot["sslot"], ot["src_cnt"], ot["tgt_cnt"])
+    assert any(a.shape != b.shape or not torch.equal(a, b)
+               for a, b in zip((*good[:2], *good[2]), orig))
+    got, want = run(bad), run(good)
+    assert relmax(got, want.numpy()) <= 1e-15
+    if case == "source_index_out_of_range":
+        assert relmax(run(bad, False), run(good, False).numpy()) <= 1e-15
+
+
+def otf_kernel_args(plan):
+    ot, ql = leaf_tile_inputs(plan, False)
+    return dict(src_tab=ot["sb_src"], ql=ql, tgt_tab=ot["sb_tgt"],
+                row_ptr=ot["row_ptr"], src_idx=ot["sslot"],
+                KQ=plan._otf_KQ, src_cnt=ot["src_cnt"],
+                tgt_cnt=ot["tgt_cnt"])
+
+
+@pytest.mark.parametrize("fault,exc", [
+    ("no_src_cnt", ValueError), ("no_tgt_cnt", ValueError),
+    ("src_cnt_int64", TypeError), ("tgt_cnt_short", ValueError),
+    ("src_cnt_strided", ValueError), ("row_ptr_int64", TypeError),
+    ("src_idx_int64", TypeError), ("ql_float32", TypeError),
+    ("src_tab_float16", TypeError), ("src_tab_KQ", ValueError),
+    ("tgt_tab_rows", ValueError), ("ql_leaves", ValueError),
+    ("row_ptr_long", ValueError), ("ql_strided", ValueError),
+    ("tgt_cnt_meta", RuntimeError),
+])
+def test_kernel_argument_checks(sphere4, fault, exc):
+    """What the CUDA entry point checks before it loads the kernel,
+    held on CPU tensors: each bad dtype, shape, layout or device
+    raises."""
+    _, _, plan = sphere4
+    args = otf_kernel_args(plan)
+    nl, K = args["ql"].shape
+    assert check_kernel_args(**args) == (nl, K, plan._otf_KQ)
+    a = args
+    bad = {
+        "no_src_cnt": dict(src_cnt=None),
+        "no_tgt_cnt": dict(tgt_cnt=None),
+        "src_cnt_int64": dict(src_cnt=a["src_cnt"].long()),
+        "tgt_cnt_short": dict(tgt_cnt=a["tgt_cnt"][:-1].contiguous()),
+        "src_cnt_strided": dict(
+            src_cnt=torch.stack([a["src_cnt"], a["src_cnt"]], 1)[:, 0]),
+        "row_ptr_int64": dict(row_ptr=a["row_ptr"].long()),
+        "src_idx_int64": dict(src_idx=a["src_idx"].long()),
+        "ql_float32": dict(ql=a["ql"].float()),
+        "src_tab_float16": dict(src_tab=a["src_tab"].half()),
+        "src_tab_KQ": dict(KQ=a["KQ"] + 1),
+        "tgt_tab_rows": dict(tgt_tab=a["tgt_tab"][:, :3].contiguous()),
+        "ql_leaves": dict(ql=a["ql"][:-1].contiguous()),
+        "row_ptr_long": dict(
+            row_ptr=torch.zeros(nl + 3, dtype=torch.int32)),
+        "ql_strided": dict(ql=a["ql"].t().contiguous().t()),
+        "tgt_cnt_meta": dict(tgt_cnt=a["tgt_cnt"].to("meta")),
+    }[fault]
+    with pytest.raises(exc):
+        check_kernel_args(**{**args, **bad})

@@ -14,7 +14,9 @@ said.  Inputs are made with numpy from a seed and go through both sides.
 - The count table of the leaf-tile P2P (``p2p_cnt``, ``leaf_counts``)
   on both packages' point plans; the plain version with it against the
   plain version without it (1e-15, padded target slots exactly 0) and
-  against the interpreted Pallas kernel; the kernel's argument checks.
+  against the interpreted Pallas kernel; bad tables (a count above K or
+  below 0, a source index out of range) read as the kernel reads them;
+  the kernel's argument checks.
 - The unit kernel: far plus near count every pair exactly once.
 """
 
@@ -41,6 +43,8 @@ from fmm_bem_tpu_torch.ops.p2p_tile import (
     pack_xyzq,
 )
 from fmm_bem_tpu_torch.solver.api import solve_plan
+
+from _torch_tables import BAD_TABLES, spoil_tables
 
 TOL = 1e-12
 
@@ -350,6 +354,25 @@ def test_plain_p2p_with_counts_matches_interpreted_pallas_kernel(points600):
         scale = np.abs(want[:, c][mask]).max()
         assert np.abs(got[:, c] - want[:, c])[mask].max() <= 1e-5 * scale
         assert (got[:, c][~mask] == 0).all()
+
+
+@pytest.mark.parametrize("case", BAD_TABLES)
+def test_plain_p2p_reads_bad_tables_as_the_kernel(points600, case):
+    """The plain version on a bad count table or pair list gives its
+    result on the corrected ones: counts clamped to [0, K], the pairs of
+    a source index past the leaf table (or below 0) dropped."""
+    tp = points600.tp
+    d = tp.device_data(4)
+    ql = torch.tensor(points600.leaf_charges(), dtype=d["p2p_xyz3"].dtype)
+    xyzq = pack_xyzq(d["p2p_xyz3"], ql[:, None, :])
+    row_ptr, src_idx, cnt = d["p2p_row_ptr"], d["p2p_src_sorted"], d["p2p_cnt"]
+    bad, good = spoil_tables(case, row_ptr, src_idx, (cnt,), ql.shape[1])
+    eps2 = tp.kernel.eps2
+    got = p2p_leaf_tiles_reference(xyzq, bad[0], bad[1], eps2, cnt=bad[2][0])
+    want = p2p_leaf_tiles_reference(xyzq, good[0], good[1], eps2,
+                                    cnt=good[2][0])
+    orig = p2p_leaf_tiles_reference(xyzq, row_ptr, src_idx, eps2, cnt=cnt)
+    assert torch.equal(got, want) and not torch.equal(want, orig)
 
 
 def kernel_args(pair):
