@@ -16,7 +16,11 @@ the reference package.
   plain PyTorch version on CPU tensors: the cached BEM panel product
   (``csrc/near_panel.cu``), the on-the-fly BEM quadrature
   (``csrc/otf_tile.cu``) or the point-Laplace P2P (``csrc/p2p_tile.cu``);
-- GMRES / FGMRES with per-iteration relaxation of the multipole order.
+- GMRES / FGMRES with per-iteration relaxation of the multipole order
+  (device-resident, or the host loop), the diagonal, block-diagonal and
+  local-inner preconditioners, FMGMRES, and the near-field-only
+  operators they use;
+- the reference's BEM example programs (``examples/``).
 
 Every entry point takes an explicit ``device`` (default ``"cuda"``; the
 CPU tests pass ``"cpu"``).

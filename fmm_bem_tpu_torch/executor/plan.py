@@ -35,9 +35,13 @@ sees its charges as ``[n, c]`` and the solver vector as the flattened
 (the Yukawa kernels: kappa sets a length) get their M2M / L2L octant
 matrices and M2L class and family operators per level.  The treecode
 evaluator (``Evaluator.TREECODE``) replaces M2L / L2L / L2P by M2P from
-the far boxes straight to the target leaves.  What the port does not
+the far boxes straight to the target leaves.  The near-field-only
+operators (``FMMConfig.local_evaluation``: every near leaf pair;
+``FMMConfig.block_diagonal``: the leaf self pairs only; ref
+EvalLocalSparse / EvalDiagonalSparse) run the near pass alone, with no
+far-field work at all.  What the port does not
 cover raises ``NotImplementedError`` at plan build: ``target_fields``,
-the near-field-only operators, ``near_panel=False``, a BEM kernel whose
+``near_panel=False``, a BEM kernel whose
 result and charge dimensions differ, and kernels without a linear P2M
 (the stresslet).
 
@@ -85,6 +89,7 @@ from fmm_bem_tpu_torch.traversal.lists import (
     build_interaction_lists,
     expand_to_leaves,
 )
+from fmm_bem_tpu_torch.utils.metrics import log
 
 
 #: correction-window store budget: beyond it the OTF mode keeps
@@ -347,8 +352,6 @@ def _check_supported(kernel, config, target_fields):
             f"FMMConfig.near_mode={config.near_mode!r}: expected 'cached' "
             "or 'otf'"
         )
-    if config.local_evaluation or config.block_diagonal:
-        no("local_evaluation / block_diagonal (near-field-only operators)")
     sparse = getattr(kernel, "near_sparse", False)
     if sparse and not config.near_panel:
         no("near_panel=False (COO near-field replay)")
@@ -447,13 +450,16 @@ class FmmPlan:
         sfields = {k: np.asarray(v)[stree.perm] for k, v in fields.items()}
 
         pmax = cfg.max_p
-        self.src = _build_side(
-            stree, sfields, kernel, pmax, scale_inv,
-            leaf_pad=cfg.leaf_pad,
-        )
-        self.tgt = self.src
-        self._build_m2l_classes()
-        self._build_near()
+        with log.phase("build.sides"):
+            self.src = _build_side(
+                stree, sfields, kernel, pmax, scale_inv,
+                leaf_pad=cfg.leaf_pad,
+            )
+            self.tgt = self.src
+        with log.phase("build.m2l_classes"):
+            self._build_m2l_classes()
+        with log.phase("build.near"):
+            self._build_near()
         # value caches: device tables per order / per BC variant
         self._ddata_common = None
         self._ddata_cache = {}
@@ -477,6 +483,14 @@ class FmmPlan:
     @property
     def leaf_pad(self):
         return self.src.leaf_pad
+
+    @property
+    def near_only(self):
+        """A near-field-only operator (local evaluation or block
+        diagonal): its matvec is the near pass alone."""
+        return bool(
+            self.config.local_evaluation or self.config.block_diagonal
+        )
 
     @property
     def leaf_ids(self):
@@ -893,6 +907,10 @@ class FmmPlan:
         charge-independent, branchy, p-independent)."""
         st, tt = self.src.tree, self.tgt.tree
         pp = self.lists.p2p_pairs
+        if self.config.block_diagonal:
+            # leaf self-blocks only (ref EvalDiagonalSparse.hpp:34-50),
+            # before any list, table or store is built from the pairs
+            pp = pp[pp[:, 0] == pp[:, 1]]
         self.p2p_src_slot = self.src.box_to_slot[pp[:, 0]].astype(np.int32)
         self.p2p_tgt_slot = self.tgt.box_to_slot[pp[:, 1]].astype(np.int32)
 
@@ -1456,6 +1474,10 @@ class FmmPlan:
         if panels is not None:
             aux["panels"] = panels
             aux["near_meta"] = meta
+        if self.near_only:
+            # no far field: the P2M / L2P tables would never be read
+            self._aux_cache[key] = aux
+            return aux
 
         pmax = self.config.max_p
         W = kern.width(p)
@@ -1524,6 +1546,9 @@ class FmmPlan:
             return self._aux_slots_cache[key]
 
         aux = dict(self.variant_aux(p, src_host, tgt_host))
+        if self.near_only:
+            self._aux_slots_cache[key] = aux
+            return aux
         nl_s, K_s = len(self.src.leaf_ids), self.src.leaf_pad
         nl_t, K_t = len(self.tgt.leaf_ids), self.tgt.leaf_pad
         s_idx = self._index(self.src.leaf_body_idx.reshape(-1))
@@ -1613,13 +1638,24 @@ class FmmPlan:
         else:
             q_t = torch.where(d["s_slot_mask"], q_t.reshape(nl_s * K_s), 0.0)
 
-        M = self._p2m_slots(d, aux, q_t, p)
-        M = self._phase_m2m(d, M)
-        L = self._phase_m2l(d, M, p)
-        L = self._phase_l2l(d, L)
-        res_t = self._l2p_slots(d, aux, L, p)
-        if len(self.m2p_src):
-            res_t = res_t + self._m2p_pass(d, tfields, M, p, nl_t, K_t)
+        if self.near_only:
+            # near-field-only operator (ref EvalLocalSparse /
+            # EvalDiagonalSparse): the near pass alone.  The reference
+            # computes P2M and M2M before its early return and lets its
+            # compiler drop them; eagerly they would run, so they are
+            # skipped here (the result is the same)
+            res_t = torch.zeros(
+                (nl_t * K_t, self.kernel.result_dim), dtype=q_t.dtype,
+                device=q_t.device,
+            )
+        else:
+            M = self._p2m_slots(d, aux, q_t, p)
+            M = self._phase_m2m(d, M)
+            L = self._phase_m2l(d, M, p)
+            L = self._phase_l2l(d, L)
+            res_t = self._l2p_slots(d, aux, L, p)
+            if len(self.m2p_src):
+                res_t = res_t + self._m2p_pass(d, tfields, M, p, nl_t, K_t)
         if self.near_rows is not None and "panels" in aux:
             res_t = res_t + self._near_pass_slots(aux, q_t)
         elif self.near_rows is None and len(self.p2p_src_slot):

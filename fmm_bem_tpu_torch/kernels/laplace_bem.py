@@ -227,3 +227,18 @@ class LaplaceBEMKernel:
         bc = np.asarray(fields["bc"])[rows]
         vals = np.where(bc == 0.0, G, dG)
         return vals.reshape(n, n)
+
+    def eval_exterior(self, fields, charges, targets, layer="G"):
+        """Off-surface evaluation of the single ('G') or double ('dGdn')
+        layer at arbitrary points (the example program's exterior-potential check,
+        LaplaceBEM.cpp:352-371).  Host numpy, O(targets x panels)."""
+        targets = np.asarray(targets, dtype=np.float64)
+        nt = len(targets)
+        ns = len(fields["xyz"])
+        rows = np.repeat(np.arange(nt, dtype=np.int64), ns)
+        cols = np.tile(np.arange(ns, dtype=np.int64), nt)
+        G, dG = near_entries_laplace(
+            {"xyz": targets}, fields, rows, cols, fine_K=self.fine_K
+        )
+        vals = G if layer == "G" else dG
+        return (vals.reshape(nt, ns) @ np.asarray(charges)).reshape(nt)

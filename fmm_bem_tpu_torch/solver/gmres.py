@@ -2,13 +2,23 @@
 
 Re-design of examples/BEM/GMRES.hpp (:142-252 GMRES, :276-380 FGMRES)
 for PyTorch: the Arnoldi basis and every vector of length n live on the
-operator's device; the small Hessenberg/Givens state (``H``, ``cs``,
-``sn``, ``s``) lives on the host in the working dtype.  Before every
-inner matvec the truncation order is chosen from the current residual
-(SolverOptions::predict_p, ref GMRES.hpp:195-196), so each iteration
-brings its Gram-Schmidt coefficients to the host once.
+operator's device.  Before every inner matvec the truncation order is
+chosen from the current residual (SolverOptions::predict_p, ref
+GMRES.hpp:195-196), so each iteration brings its Gram-Schmidt
+coefficients to the host once.  Both solvers project a new Krylov
+vector the same way (``_project``).
 
-Two schedules, both from the residual:
+Two solvers:
+
+- ``gmres`` / ``fgmres``, the host loop: the small Hessenberg/Givens
+  state (``H``, ``cs``, ``sn``, ``s``) is numpy f64 whatever the
+  working dtype, the order comes from ``SolverConfig.schedule_p`` with
+  a sticky stall boost, and ``matvec(x, p)`` takes the vector alone;
+- ``gmres_device`` / ``fgmres_device``: the small state is numpy in the
+  working dtype, ``matvec(operand, x, p)`` takes per-order device
+  tables, and the schedule is one of the two below.
+
+Two schedules of the device solver, both from the residual:
 
 - ``p_tiers`` set: the order is picked per iteration among the tiers
   (the predicted order rounded up to a tier, never below a sticky floor
@@ -83,6 +93,243 @@ def _embed(a, shape):
     sl = tuple(slice(0, min(sa, st)) for sa, st in zip(a.shape, shape))
     out[sl] = a[sl]
     return out
+
+
+def _project(Vm, w):
+    """Block classical Gram-Schmidt of ``w`` against the rows of ``Vm``,
+    with one re-orthogonalisation pass for f32 robustness: two [i, n]
+    matvec pairs instead of the reference's per-column dot loop
+    (GMRES.hpp:203-208).  Returns ``(w, coefficients, norm of w)``, all
+    tensors on ``w``'s device."""
+    c1 = Vm @ w
+    w = w - c1 @ Vm
+    c2 = Vm @ w
+    w = w - c2 @ Vm
+    return w, c1 + c2, torch.linalg.vector_norm(w)
+
+
+def _apply_plane_rotations(h, cs, sn, i):
+    """Apply accumulated Givens rotations to column h (ref GMRES.hpp:82-116)."""
+    for k in range(i):
+        t = cs[k] * h[k] + sn[k] * h[k + 1]
+        h[k + 1] = -sn[k] * h[k] + cs[k] * h[k + 1]
+        h[k] = t
+    return h
+
+
+def _gen_rotation(dx, dy):
+    if dy == 0.0:
+        return 1.0, 0.0
+    if abs(dy) > abs(dx):
+        t = dx / dy
+        sn = 1.0 / np.sqrt(1.0 + t * t)
+        return t * sn, sn
+    t = dy / dx
+    cs = 1.0 / np.sqrt(1.0 + t * t)
+    return cs, t * cs
+
+
+def gmres(
+    matvec: Callable,
+    b,
+    x0=None,
+    config: Optional[SolverConfig] = None,
+    M: Optional[Callable] = None,
+    p_fixed: Optional[int] = None,
+    flexible: bool = False,
+    verbose: bool = False,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 8,
+):
+    """Solve A x = b with right-preconditioned restarted GMRES (the host
+    loop).
+
+    Parameters
+    ----------
+    matvec : callable ``(x, p) -> A@x`` evaluated at truncation order p
+        (an FmmPlan-backed operator; a dense operator may ignore p).
+    b : right-hand side; a tensor's device and dtype are the solve's
+        (numpy becomes a CPU tensor).  The basis lives there; ``H``,
+        ``cs``, ``sn`` and ``s`` are numpy f64.
+    M : right preconditioner callable ``(r) -> z`` (default identity).
+    flexible : FGMRES — store Z = M(V) columns so a varying/nonlinear
+        preconditioner is applied consistently (ref GMRES.hpp:276-380).
+    p_fixed : disable relaxation and use this order for every matvec
+        (the reference's ``-fixed_p`` flag, LaplaceBEM.cpp:120).
+    checkpoint_path : if set, the full Krylov state is saved there every
+        ``checkpoint_every`` inner iterations; a matching checkpoint at
+        this path is resumed from (and the remaining iterations replay
+        bit-identically).  Removed on convergence.
+    Returns ``(x, SolveInfo)`` with ``x`` a tensor on ``b``'s device.
+    """
+    cfg = config or SolverConfig()
+    b = torch.as_tensor(b)
+    n = b.shape[0]
+    dt, dev = b.dtype, b.device
+
+    def vec(a):
+        return torch.as_tensor(a, dtype=dt, device=dev)
+
+    x = torch.zeros_like(b) if x0 is None else vec(x0)
+    if M is None:
+        M = lambda r: r
+
+    normb = float(torch.linalg.vector_norm(b))
+    if normb == 0.0:
+        normb = 1.0
+
+    history = []
+    total_it = 0
+    resid = 1.0
+
+    restart = int(min(cfg.restart, cfg.max_iters, n))
+
+    # relaxation stall guard: when the last STALL_WIN iterations
+    # improved the residual by less than 1 / STALL_FACTOR, raise the
+    # scheduled order.  The boost is sticky within the solve.
+    relaxed = p_fixed is None and cfg.variable_p
+    p_boost = 0
+    r_hist = []
+
+    resume = _load_krylov_ckpt(checkpoint_path, "host", n)
+    if resume is not None:
+        x = vec(resume["x"])
+        total_it = int(resume["total_it"])
+
+    def _ckpt_done():
+        if checkpoint_path is not None and os.path.exists(checkpoint_path):
+            os.unlink(checkpoint_path)
+
+    while total_it < cfg.max_iters:
+        if resume is not None:
+            # mid-cycle resume: restore the Arnoldi state (re-padded to
+            # this run's buffer shapes — see _embed)
+            Vbuf = vec(resume["V"])
+            Z = [vec(zr) for zr in resume["Z"]] if flexible else []
+            H = _embed(resume["H"], (restart + 1, restart))
+            cs = _embed(resume["cs"], (restart + 1,))
+            sn = _embed(resume["sn"], (restart + 1,))
+            s = _embed(resume["s"], (restart + 1,))
+            i_start = int(resume["i_next"])
+            resid = float(resume["resid"])
+            resume = None
+        else:
+            # full-accuracy residual at (re)start (ref GMRES.hpp:175-182)
+            r = b - vec(matvec(x, cfg.max_p))
+            beta = float(torch.linalg.vector_norm(r))
+            resid = beta / normb
+            if resid < cfg.residual:
+                _ckpt_done()
+                return x, SolveInfo(total_it, resid, True, history)
+
+            # the basis grows by doubling: the default restart of 500
+            # would otherwise pin a [501, n] basis for a 5-iteration solve
+            cap = min(restart + 1, 33)
+            Vbuf = torch.zeros((cap, n), dtype=dt, device=dev)
+            Vbuf[0] = r / beta
+            Z = []
+            H = np.zeros((restart + 1, restart))
+            cs = np.zeros(restart + 1)
+            sn = np.zeros(restart + 1)
+            s = np.zeros(restart + 1)
+            s[0] = beta
+            i_start = 0
+
+        # columns of H computed in this cycle.  The reference
+        # back-substitutes i + 1 columns, one too many when max_iters
+        # stops the cycle before its end (a zero pivot: nan, or an
+        # IndexError in the flexible update); the port counts them
+        m = i_start
+        for i in range(i_start, restart):
+            if total_it >= cfg.max_iters:
+                break
+            if i + 1 >= Vbuf.shape[0]:  # grow the basis by doubling
+                grow = min(Vbuf.shape[0], restart + 1 - Vbuf.shape[0])
+                Vbuf = torch.cat(
+                    [Vbuf, torch.zeros((grow, n), dtype=dt, device=dev)]
+                )
+            # relaxation: the order from the current residual; the stall
+            # boost goes through schedule_p so it lands on a tier
+            p = cfg.schedule_p(resid, p_fixed, boost=p_boost)
+            z = M(Vbuf[i])
+            if flexible:
+                Z.append(z)
+            w, coeffs, bnorm = _project(Vbuf[: i + 1], vec(matvec(z, p)))
+            # the iteration's one device->host transfer
+            host = torch.cat([coeffs, bnorm[None]]).cpu().numpy()
+            H[: i + 1, i] = host[:-1]
+            H[i + 1, i] = float(host[-1])
+            if H[i + 1, i] > 1e-300:
+                Vbuf[i + 1] = w / H[i + 1, i]
+            else:
+                Vbuf[i + 1] = w
+
+            # Givens update (ref GMRES.hpp:218-220)
+            h = _apply_plane_rotations(H[: i + 2, i].copy(), cs, sn, i)
+            cs[i], sn[i] = _gen_rotation(h[i], h[i + 1])
+            h[i], h[i + 1] = cs[i] * h[i] + sn[i] * h[i + 1], 0.0
+            H[: i + 2, i] = h
+            s[i + 1] = -sn[i] * s[i]
+            s[i] = cs[i] * s[i]
+            resid = abs(s[i + 1]) / normb
+            total_it += 1
+            m = i + 1
+            history.append((total_it, resid, p))
+            if relaxed and resid >= cfg.residual:
+                r_hist.append(resid)
+                if (
+                    len(r_hist) > STALL_WIN
+                    and resid > STALL_FACTOR * r_hist[-1 - STALL_WIN]
+                    and p < cfg.max_p
+                ):
+                    p_boost += 2
+                    r_hist.clear()
+            if verbose:
+                print(f"it: {total_it:4d}  res: {resid:.3e}  fmm_req_p: {p}")
+            if checkpoint_path is not None and (
+                total_it % checkpoint_every == 0
+            ):
+                V_host = Vbuf.cpu().numpy()
+                _save_krylov_ckpt(
+                    checkpoint_path,
+                    "host",
+                    n=n,
+                    x=x.cpu().numpy(),
+                    V=V_host,
+                    Z=torch.stack(Z).cpu().numpy()
+                    if Z
+                    else np.zeros((0, n), V_host.dtype),
+                    H=H,
+                    cs=cs,
+                    sn=sn,
+                    s=s,
+                    i_next=i + 1,
+                    total_it=total_it,
+                    resid=resid,
+                )
+            if resid < cfg.residual:
+                break
+
+        # back-substitution and update (ref GMRES.hpp:230-243)
+        if m > 0:
+            y = np.zeros(m)
+            for k in range(m - 1, -1, -1):
+                y[k] = (s[k] - H[k, k + 1 : m] @ y[k + 1 : m]) / H[k, k]
+            if flexible:
+                for k in range(m):
+                    x = x + float(y[k]) * Z[k]
+            else:
+                x = x + M(vec(y) @ Vbuf[:m])
+        if resid < cfg.residual:
+            _ckpt_done()
+            return x, SolveInfo(total_it, resid, True, history)
+
+    return x, SolveInfo(total_it, resid, False, history)
+
+
+def fgmres(matvec, b, **kw):
+    """Flexible GMRES, the host loop (ref GMRES.hpp:276-380)."""
+    return gmres(matvec, b, flexible=True, **kw)
 
 
 class DeviceGmresContext:
@@ -191,29 +438,21 @@ def gmres_device(
     raw_cfg = dataclasses.replace(cfg, p_tiers=None)
 
     def arnoldi(w, st):
-        """One Arnoldi iteration given the new Krylov vector w: modified
-        Gram-Schmidt (+ one re-orthogonalisation pass) against the live
-        rows of the basis on the device, then the Givens update of
-        column i on the host."""
+        """One Arnoldi iteration given the new Krylov vector w: the
+        projection against the live rows of the basis on the device
+        (``_project``), then the Givens update of column i on the
+        host."""
         i = st["i"]
-        Vm = st["V"][: i + 1]
-        c1 = Vm @ w
-        w = w - c1 @ Vm
-        c2 = Vm @ w
-        w = w - c2 @ Vm
-        hn_t = torch.linalg.vector_norm(w)
+        w, coeffs, hn_t = _project(st["V"][: i + 1], w)
         # the iteration's one device->host transfer
-        host = torch.cat([c1 + c2, hn_t[None]]).cpu().numpy()
+        host = torch.cat([coeffs, hn_t[None]]).cpu().numpy()
         hn = host[-1]
         st["V"][i + 1] = w / max(hn, tiny)
         col = np.zeros(restart + 1, ft)
         col[: i + 1] = host[:-1]
         col[i + 1] = hn
         cs, sn, s = st["cs"], st["sn"], st["s"]
-        for k in range(i):
-            t = cs[k] * col[k] + sn[k] * col[k + 1]
-            col[k + 1] = -sn[k] * col[k] + cs[k] * col[k + 1]
-            col[k] = t
+        _apply_plane_rotations(col, cs, sn, i)
         dx_, dy_ = col[i], col[i + 1]
         r_ = np.sqrt(dx_ * dx_ + dy_ * dy_)
         ci = dx_ / max(r_, tiny) if r_ > 0 else ft(1.0)

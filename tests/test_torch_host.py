@@ -334,11 +334,6 @@ class _NonLinearP2M(TKernel):
         # the ids each case has been reported under
         pytest.param("target_fields", {"target_fields": True},
                      id="target_fields-kwargs0"),
-        pytest.param("local_evaluation",
-                     {"config": {"local_evaluation": True}},
-                     id="local_evaluation-kwargs2"),
-        pytest.param("block_diagonal", {"config": {"block_diagonal": True}},
-                     id="block_diagonal-kwargs3"),
         pytest.param("near_panel=False", {"config": {"near_panel": False}},
                      id="near_panel=False-kwargs4"),
         pytest.param("vector-valued", {"kernel": _VectorBEMKernel(K=3)},
@@ -358,6 +353,34 @@ def test_unported_features_raise_at_plan_build(what, kwargs):
             target_fields=fields if "target_fields" in kwargs else None,
             device="cpu",
         )
+
+
+@pytest.mark.parametrize(
+    "what,kwargs",
+    [
+        # the ids these cases had as refusals, before the port covered them
+        pytest.param("local_evaluation",
+                     {"config": {"local_evaluation": True}},
+                     id="local_evaluation-kwargs2"),
+        pytest.param("block_diagonal", {"config": {"block_diagonal": True}},
+                     id="block_diagonal-kwargs3"),
+    ],
+)
+def test_near_only_plans_build_and_match(what, kwargs):
+    """What the refusal cases above asked for: the near-field-only
+    operators build, and their ``apply`` is the JAX plan's."""
+    fields = make_panels(unit_sphere(2), K=3)
+    cfg = dict(ncrit=8, dtype="float64", max_p=4, **kwargs["config"])
+    jp = J.FmmPlan(JKernel(K=3), fields, J.FMMConfig(**cfg))
+    tp = T.FmmPlan(TKernel(K=3), fields, T.FMMConfig(**cfg), device="cpu")
+    assert tp.near_only
+    same(tp.p2p_src_slot, jp.p2p_src_slot, "p2p_src_slot")
+    same(tp.p2p_tgt_slot, jp.p2p_tgt_slot, "p2p_tgt_slot")
+    q = np.random.default_rng(8).standard_normal(len(fields["xyz"]))
+    for fn in ("apply", "apply_flipped_bc"):
+        want = np.asarray(getattr(jp, fn)(q, p=3))
+        got = getattr(tp, fn)(q, p=3).numpy()
+        assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
 
 
 @pytest.mark.parametrize(
