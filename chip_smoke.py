@@ -49,7 +49,18 @@ card, and drives the port's paths at full size:
   each); Stokes FMGMRES; the Yukawa solve through the host loop; a
   block-diagonal point plan on the million points (``p2p_tile`` on its
   self pairs, the block-diagonal preconditioner); then the three BEM
-  example programs of the port run in-process.
+  example programs of the port run in-process;
+- the plans without a slot operator: one body-order ``apply`` on each
+  plan above against its slot-order one; the COO near-field replay
+  (``near_panel=False``) of the cached sphere, its ``droptol`` and its
+  first-kind solve on the body-order operator, the Stokes COO plan
+  against its panel plan; dual trees: ``LaplaceKernel`` on 1,000,000
+  sources and as many targets, the unit kernel exact in f64, the
+  cached sphere evaluated at 200,000 off-surface points against
+  ``eval_exterior`` (``near_panel`` on the dual store), then dual plans
+  of unequal leaf pads (``otf_tile`` on the on-the-fly one); the point
+  programs ``serialrun`` and ``scaling`` run in-process (``p2p_tile``
+  held on the ``serialrun`` plan's tables).
 
 Each path's kernel launches are counted from zero just before it is
 driven and read just after.  Each phase prints one JSON line; any
@@ -58,7 +69,7 @@ script fails before it prints anything.
 
 ``--quick`` runs every path at a small size (8,192 panels, 50,000
 points, 2,048 Stokes panels, the point kernels at a twentieth of their
-counts) for a look of a few minutes.
+counts, 20,000 dual targets) for a look of a few minutes.
 """
 
 import argparse
@@ -70,6 +81,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -94,6 +106,7 @@ from fmm_bem_tpu_torch.kernels.laplace import LaplaceKernel
 from fmm_bem_tpu_torch.kernels.laplace_bem import LaplaceBEMKernel
 from fmm_bem_tpu_torch.kernels.spherical_yukawa import YukawaSphericalKernel
 from fmm_bem_tpu_torch.kernels.stokes_bem import StokesBEMKernel
+from fmm_bem_tpu_torch.kernels.unit import UnitKernel
 from fmm_bem_tpu_torch.kernels.yukawa_bem import YukawaBEMKernel
 from fmm_bem_tpu_torch.ops import _build
 from fmm_bem_tpu_torch.ops import near_panel as npl
@@ -303,9 +316,11 @@ def leaf_charges(plan, dtype, seed=11):
 def pair_evaluations(plan):
     """Kernel evaluations the near pairs of ``plan`` need: the sum over
     pairs of (bodies of the target leaf) x (bodies of the source leaf),
-    padded slots not counted."""
-    cnt = plan.src.leaf_body_mask.sum(axis=1).astype(np.int64)
-    return int((cnt[plan.p2p_tgt_slot] * cnt[plan.p2p_src_slot]).sum())
+    padded slots not counted (a dual plan's two trees each by its own
+    table)."""
+    cnt_s = plan.src.leaf_body_mask.sum(axis=1).astype(np.int64)
+    cnt_t = plan.tgt.leaf_body_mask.sum(axis=1).astype(np.int64)
+    return int((cnt_t[plan.p2p_tgt_slot] * cnt_s[plan.p2p_src_slot]).sum())
 
 
 def otf_needed_work(plan, tgt_tab, kappa):
@@ -902,7 +917,7 @@ def check_contract_edges(dtype, tol):
     return checks
 
 
-def stokes_plan(recursions, dtype, ncrit=64, leaf_pad=64):
+def stokes_plan(recursions, dtype, ncrit=64, leaf_pad=64, **config):
     """``StokesBEMKernel`` plan on the unit sphere at the reference
     program's operating point.  Returns (plan, fields, n, seconds of
     the host's near-entry assembly inside the plan build)."""
@@ -920,7 +935,8 @@ def stokes_plan(recursions, dtype, ncrit=64, leaf_pad=64):
     kern.near_values = timed
     plan = fbt.FmmPlan(
         kern, fields,
-        fbt.FMMConfig(ncrit=ncrit, dtype=dtype, max_p=10, leaf_pad=leaf_pad),
+        fbt.FMMConfig(ncrit=ncrit, dtype=dtype, max_p=10, leaf_pad=leaf_pad,
+                      **config),
         device=DEV,
     )
     return plan, fields, len(fields["xyz"]), timer["s"]
@@ -1210,6 +1226,44 @@ def phase_main_path(plan, n, p=5, chain=50, phase="main_path",
     return rec, x1, b1, b2
 
 
+def dev_us(ev):
+    """Device microseconds of a profiler event, by either attribute
+    name torch has used."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(ev, name):
+            return float(getattr(ev, name))
+    return 0.0
+
+
+def device_ops(fn):
+    """One call of ``fn()`` under torch.profiler: its device operations
+    by name, {name: [device us, launches]}, and the profiled window in
+    us."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    ) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        window_us = (time.time() - t0) * 1e6
+    ops = {e.key: [dev_us(e), int(e.count)] for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA}
+    return ops, window_us
+
+
+def idle_share(ops, ms):
+    """The card's idle share of a call that takes ``ms`` as it runs
+    unprofiled (the profiler slows the host, so its own window overstates
+    the idle time), from the device operations ``ops`` it ran
+    (``device_ops``); None where the profiler saw no device time."""
+    busy_us = sum(v[0] for v in ops.values())
+    return max(0.0, 1.0 - busy_us / (ms * 1e3)) if busy_us > 0 else None
+
+
 def phase_profile(plan, charges, p=5, phase="profile"):
     """The matvec's phases timed by CUDA events, then one matvec under
     torch.profiler: top device operations, launches, busy time; and the
@@ -1254,30 +1308,7 @@ def phase_profile(plan, charges, p=5, phase="profile"):
         phase_ms["near_corrections"] = t(
             lambda: plan._near_otf_corr(aux["panels"], ql, ql))
 
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(
-        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    ) as prof:
-        torch.cuda.synchronize()
-        t0 = time.time()
-        mv(operand, x, p)
-        torch.cuda.synchronize()
-        window_us = (time.time() - t0) * 1e6
-
-    from torch.autograd import DeviceType
-
-    def dev_us(ev):
-        for name in ("self_device_time_total", "self_cuda_time_total"):
-            if hasattr(ev, name):
-                return float(getattr(ev, name))
-        return 0.0
-
-    by_name = {
-        e.key: [dev_us(e), int(e.count)]
-        for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA
-    }
+    by_name, window_us = device_ops(lambda: mv(operand, x, p))
 
     phase_launches = {"l2p": device_launches(
         lambda: plan._l2p_slots(d, aux, L, p))[0]}
@@ -1289,12 +1320,7 @@ def phase_profile(plan, charges, p=5, phase="profile"):
     rec = {
         "phase": phase, "p": p,
         "device_busy_us": busy_us if busy_us > 0 else None,
-        # idle share of one matvec as it runs unprofiled (the profiler
-        # slows the host, so its own window overstates the idle time)
-        "device_idle_share": (
-            max(0.0, 1.0 - busy_us / (phase_ms["matvec"] * 1e3))
-            if busy_us > 0 else None
-        ),
+        "device_idle_share": idle_share(by_name, phase_ms["matvec"]),
         "profiled_window_us": window_us,
         "device_launches": sum(v[1] for v in by_name.values()),
         "top_device_ops": [
@@ -1311,12 +1337,22 @@ def phase_profile(plan, charges, p=5, phase="profile"):
     return rec
 
 
-def emit_plan_build(phase, plan, n, host_build_s, **extra):
+def emit_plan_build(phase, plan, host_build_s, **extra):
+    """The plan's sizes; a dual plan's per tree as [sources, targets]."""
+    sides = (plan.src, plan.tgt) if plan.dual else (plan.src,)
+
+    def per_side(f):
+        vals = [f(side) for side in sides]
+        return vals if plan.dual else vals[0]
+
     emit({
-        "phase": phase, "n_bodies": n, "host_build_s": host_build_s,
-        "leaves": len(plan.leaf_ids), "leaf_pad": plan.leaf_pad,
-        "levels": int(plan.tree.num_levels),
+        "phase": phase, "host_build_s": host_build_s,
+        "n_bodies": per_side(lambda side: side.tree.num_bodies),
+        "leaves": per_side(lambda side: len(side.leaf_ids)),
+        "leaf_pad": per_side(lambda side: side.leaf_pad),
+        "levels": per_side(lambda side: int(side.tree.num_levels)),
         "near_pairs": int(len(plan.p2p_src_slot)),
+        "m2l_pairs": int(len(plan.lists.m2l_pairs)),
         "m2p_pairs": int(len(plan.m2p_src)), **extra,
     })
 
@@ -1345,7 +1381,7 @@ def path_cached(recursions):
     panels, meta = plan.near_panels()
     torch.cuda.synchronize()
     emit_plan_build(
-        "plan_build", plan, n, host_build_s, near_store_s=time.time() - t0,
+        "plan_build", plan, host_build_s, near_store_s=time.time() - t0,
         near_store_bytes=nbytes_of(panels["A"]),
     )
     nl = len(plan.leaf_ids)
@@ -1359,6 +1395,7 @@ def path_cached(recursions):
     phase_cached_solvers(plan, fields, n, main_rec["first_kind_relaxed"])
     near_entries = []
     near_checks = phase_near_only(plan, fields, n, near_entries)
+    phase_body_order(plan, "cached", "near_panel", 5)
 
     # the on-the-fly operator on the same sphere and the same charges
     oplan, _ = build_plan(recursions, "float32", near_mode="otf",
@@ -1396,6 +1433,7 @@ def path_cached(recursions):
     rec["err_rel_diff"] = abs(otf1["err"] - cached1["err"]) / cached1["err"]
     rec["err_rel_diff_limit"] = OTF_SOLVE_ERR_REL_DIFF
     emit(rec)
+    phase_body_order(oplan, "cached_otf", "otf_tile", 5)
     worst = max(rec["rel_max_diff"], rec["rel_max_diff_flipped"])
     if not worst <= rec["limit"]:
         fail("the on-the-fly matvec is not the cached matvec")
@@ -1407,6 +1445,9 @@ def path_cached(recursions):
         fail("the first-kind solve through the on-the-fly near field is "
              "not the one through the cached near field: "
              f"{otf1} against {cached1}")
+    del oplan, store
+    torch.cuda.empty_cache()
+    phase_coo_replay(plan, fields, cached1, recursions)
     return [full, full64, *near_checks], [kernel_entry(
         "near_panel", "fmm_bem_tpu/ops/near_panel.py:539", full,
         main_rec["kernel_launches"],
@@ -1424,7 +1465,7 @@ def path_otf(recursions):
     torch.cuda.synchronize()
     ot = store["otf_tiles"]
     emit_plan_build(
-        "otf_plan_build", plan, n, host_build_s,
+        "otf_plan_build", plan, host_build_s,
         near_store_s=time.time() - t0,
         correction_entries=int(len(plan.near_rows)),
         correction_store_bytes=nbytes_of(
@@ -1446,6 +1487,7 @@ def path_otf(recursions):
         plan, n, chain=20, phase="otf_path", kernel="otf_tile",
         err1_limit=OTF_FIRST_KIND_ERR_LIMIT, baseline_p=10)
     phase_profile(plan, np.ones(n, np.float32), phase="otf_profile")
+    phase_body_order(plan, "otf", "otf_tile", 5)
     del plan, store, ot, ql
     phase_otf_f64(recursions, n, main_rec, b1, b2)
     return [full, yukawa, full64, yukawa64], kernel_entry(
@@ -1520,7 +1562,7 @@ def path_points(npoints, nbase):
     t0 = time.time()
     plan, pts, q = point_plan(npoints, 32)
     host_build_s = time.time() - t0
-    emit_plan_build("points_plan_build", plan, npoints, host_build_s)
+    emit_plan_build("points_plan_build", plan, host_build_s)
     ql, _ = leaf_charges(plan, torch.float32)
     d = plan.device_data(5)
     full = check_p2p_tile(plan, p2p_tables(d, ql), 1e-5, "points_path",
@@ -1559,6 +1601,7 @@ def path_points(npoints, nbase):
         fail(f"one apply launched {counts}: the point path did not go "
              "through p2p_tile once, and no other kernel")
     phase_profile(plan, q, phase="points_profile")
+    phase_body_order(plan, "points", "p2p_tile", 5)
     return [full, full64], kernel_entry(
         "p2p_tile", "fmm_bem_tpu/ops/p2p_tile.py:180", full,
         counts["p2p_tile"],
@@ -1726,7 +1769,7 @@ def path_stokes(recursions, chain=20, prefix="stokes"):
     store_flipped_s = time.time() - t0
     C, KTr, Lb = panels["A"].shape
     emit_plan_build(
-        f"{prefix}_plan_build", plan, n, host_build_s,
+        f"{prefix}_plan_build", plan, host_build_s,
         near_entries_s=near_entries_s, near_entries=int(len(plan.near_rows)),
         near_store_s=store_s, near_store_flipped_s=store_flipped_s,
         near_store_bytes=nbytes_of(panels["A"]), chunks=C,
@@ -1746,6 +1789,7 @@ def path_stokes(recursions, chain=20, prefix="stokes"):
     u = np.tile([1.0, 0.0, 0.0], (n, 1)).astype(np.float32)
     phase_profile(plan, u, p=STOKES_P, phase=f"{prefix}_profile")
     phase_profile(plan, u, p=STOKES_P_MIN, phase=f"{prefix}_profile_p5")
+    phase_body_order(plan, prefix, "panel_contract", STOKES_P)
     return [full, full64], kernel_entry(
         "panel_contract", "fmm_bem_tpu/ops/near_panel.py:626", full,
         main_rec["kernel_launches"],
@@ -1934,7 +1978,7 @@ def path_yukawa(recursions, small_recursions):
     torch.cuda.synchronize()
     fam = plan.m2l_fam
     emit_plan_build(
-        "yukawa_plan_build", plan, n, host_build_s,
+        "yukawa_plan_build", plan, host_build_s,
         near_store_s=time.time() - t0,
         near_store_bytes=nbytes_of(panels["A"]),
         m2m_octant_matrices=len(plan.src.m2m_mats),
@@ -1953,6 +1997,7 @@ def path_yukawa(recursions, small_recursions):
     ones = np.ones(n, np.float32)
     phase_profile(plan, ones, p=YUKAWA_P, phase="yukawa_profile")
     phase_profile(plan, ones, p=5, phase="yukawa_profile_p5")
+    phase_body_order(plan, "yukawa", "near_panel", YUKAWA_P)
     del plan, panels
     phase_yukawa_f64_full(recursions, solve, host)
     phase_yukawa_f64(small_recursions)
@@ -2187,18 +2232,9 @@ def phase_cached_solvers(plan, fields, n, device_first):
 def device_launches(fn):
     """Device launches of ``fn()`` under torch.profiler, with the names
     of the operations."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(
-        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    ) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ops = {e.key[:80]: int(e.count) for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA}
-    return sum(ops.values()), ops
+    ops, _ = device_ops(fn)
+    return (sum(v[1] for v in ops.values()),
+            {k[:80]: v[1] for k, v in ops.items()})
 
 
 def phase_near_only(plan, fields, n, entries):
@@ -2414,7 +2450,7 @@ def path_points_block_diagonal(npoints):
     t0 = time.time()
     plan, pts, q = point_plan(npoints, 32, block_diagonal=True)
     host_build_s = time.time() - t0
-    emit_plan_build("points_block_diagonal_plan_build", plan, npoints,
+    emit_plan_build("points_block_diagonal_plan_build", plan,
                     host_build_s)
     nl = len(plan.leaf_ids)
     if not len(plan.p2p_src_slot) == nl or not (
@@ -2645,6 +2681,639 @@ def phase_twins(laplace_recursions, small_recursions):
     return entries
 
 
+# ----------------------------------------------------------------------
+# body order, dual trees, the COO replay, the point programs
+# ----------------------------------------------------------------------
+
+#: the body-order matvec against the slot-order one on the same plan,
+#: order and charges, relative L2: the same operator, its sums in
+#: another order (f32)
+BODY_ORDER_LIMIT = 1e-5
+#: the dual BEM exterior potential against ``eval_exterior`` on 1,000
+#: sampled targets, relative L2: the JAX package's own bar
+#: (tests/test_dual_tree.py)
+DUAL_EXTERIOR_LIMIT = 1e-4
+#: the on-the-fly dual plan against the cached dual plan of the same
+#: trees, relative to the largest value (no near-singular corrections
+#: off the surface: the regular quadrature alone, in f32 both ways)
+DUAL_OTF_LIMIT = 1e-5
+#: the depth cap of the dual plans with unequal leaf pads: at the full
+#: size both trees fill their leaves to ncrit = 64 (K_s = K_t = 64);
+#: capped at level 6 the sphere's leaves hold up to 136 panels while the
+#: target tree, five levels deep, keeps 64
+DUAL_UNEQUAL_MAX_LEVEL = 6
+#: the dual unit-kernel FMM and treecode against direct summation, f64
+#: (the dual_correctness.cpp oracle)
+DUAL_UNIT_LIMIT = 1e-12
+#: the COO replay's host build at the full sphere, predicted from the
+#: sphere a recursion smaller (times four), must stay under this; else
+#: the smaller sphere stands in for it (the pattern of
+#: STOKES_REC8_HOST_BUDGET_S)
+COO_FULL_HOST_BUDGET_S = 120.0
+#: the Stokes COO plan against its panel plan (2,048 panels), relative
+#: to the largest value
+STOKES_COO_LIMIT = 1e-5
+#: the stresslet program's error against direct summation: the bar of
+#: the JAX package's own test (tests/test_stokes_ops.py)
+STRESSLET_LIMIT = 5e-4
+
+
+def no_kernel_counts():
+    return dict.fromkeys(WRAPPERS, 0)
+
+
+def phase_body_order(plan, label, kernel, p, seed=21):
+    """One body-order ``apply`` (``apply_body_order``: charges in and
+    results out per body, ``FmmPlan._matvec``) on a plan of an earlier
+    path, against the slot-order ``apply`` on the same seeded charges;
+    the launches of the body-order run counted from 0 (its path's
+    kernel once, no other), both timed."""
+    n = plan.src.tree.num_bodies
+    cdim = getattr(plan.kernel, "charge_dim", 1)
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((n,) if cdim == 1 else (n, cdim)).astype(
+        np.float32)
+    want = plan.apply(q, p=p)
+    torch.cuda.synchronize()
+    reset_launch_counts()  # every kernel count, just before the run
+    got = plan.apply_body_order(q, p=p)
+    torch.cuda.synchronize()
+    counts = launch_counts()  # ... and read just after it
+    rel = float((got - want).double().norm() / want.double().norm())
+    rec = {
+        "phase": "body_order", "plan": label, "n_bodies": n, "p": p,
+        "rel_l2_diff_vs_slot_order": rel, "limit": BODY_ORDER_LIMIT,
+        "kernel": kernel, "launch_counts": counts,
+        "body_order_ms": gpu_ms(
+            lambda: plan.apply_body_order(q, p=p), 3, 1, batches=1),
+        "slot_order_ms": gpu_ms(lambda: plan.apply(q, p=p), 3, 1, batches=1),
+    }
+    emit(rec)
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        fail(f"body order on the {label} plan: bad result")
+    if not rel <= BODY_ORDER_LIMIT:
+        fail(f"body order on the {label} plan differs from slot order by "
+             f"{rel:.3e}")
+    if counts != {**no_kernel_counts(), kernel: 1}:
+        fail(f"body order on the {label} plan launched {counts}: not "
+             f"{kernel} once and no other kernel")
+    return rec
+
+
+def dual_point_plan(ns, nt, seed, kernel, dtype, evaluator=Evaluator.FMM,
+                    lo=(0.0, 1.0), hi=(0.2, 1.2)):
+    """A dual point plan: ``ns`` sources uniform in [lo]^3, ``nt``
+    targets uniform in [hi]^3 (the overlap of tests/test_dual_tree.py),
+    charges from the same seeded generator.  Returns (plan, sources,
+    targets, charges, host build seconds)."""
+    rng = np.random.default_rng(seed)
+    src = rng.uniform(*lo, (ns, 3))
+    tgt = rng.uniform(*hi, (nt, 3))
+    q = rng.uniform(0.5, 1.5, ns) if kernel is LaplaceKernel else \
+        rng.standard_normal(ns)
+    t0 = time.time()
+    plan = fbt.FmmPlan(
+        kernel(), {"xyz": src},
+        fbt.FMMConfig(ncrit=64, dtype=dtype, max_p=5, evaluator=evaluator),
+        target_fields={"xyz": tgt}, device=DEV,
+    )
+    return plan, src, tgt, q, time.time() - t0
+
+
+def direct_at(kernel, tgt, src, q, block=1 << 26):
+    """Direct summation in f64 on the card at ``tgt``, in blocks of
+    targets that keep the [targets, sources] planes near ``block``."""
+    src = torch.as_tensor(src, dtype=torch.float64, device=DEV)
+    qd = torch.as_tensor(q, dtype=torch.float64, device=DEV)
+    tgt = torch.as_tensor(tgt, dtype=torch.float64, device=DEV)
+    step = max(1, block // src.shape[0])
+    return torch.cat([kernel.direct(tgt[i:i + step], src, qd)
+                      for i in range(0, tgt.shape[0], step)])
+
+
+def dual_errors(plan, src, tgt, q, out, nsample=1000, seed=17):
+    """Relative L2 error of potential and force of a dual Laplace plan
+    against direct summation on a seeded sample of targets."""
+    idx = np.random.default_rng(seed).choice(len(tgt), nsample,
+                                             replace=False)
+    exact = direct_at(plan.kernel, tgt[idx], src, q)
+    got = out[torch.as_tensor(idx, device=DEV)].double()
+    return (
+        float((got[:, 0] - exact[:, 0]).norm() / exact[:, 0].norm()),
+        float((got[:, 1:] - exact[:, 1:]).norm() / exact[:, 1:].norm()),
+    )
+
+
+def path_dual_points(npoints, nunit, nbase):
+    """Dual point plans: ``LaplaceKernel`` on ``npoints`` sources and as
+    many targets at p=5 (f32; no hand kernel: a dual plan's P2P runs the
+    kernel's own ``p2p_block``), held to three times the error of the
+    same plan on ``nbase`` points; then ``UnitKernel`` on ``nunit``
+    sources and 0.7 times as many targets in f64, FMM and treecode,
+    exact against direct summation."""
+    torch.cuda.empty_cache()
+    base, bsrc, btgt, bq, _ = dual_point_plan(nbase, nbase, 41,
+                                              LaplaceKernel, "float32")
+    base_err = dual_errors(base, bsrc, btgt, bq, base.apply(bq, p=5))
+    del base
+    plan, src, tgt, q, host_build_s = dual_point_plan(
+        npoints, npoints, 42, LaplaceKernel, "float32")
+    emit_plan_build("dual_points_plan_build", plan, host_build_s)
+    reset_launch_counts()  # every kernel count, just before the run
+    t0 = time.time()
+    out = plan.apply(q, p=5)
+    torch.cuda.synchronize()
+    first_apply_s = time.time() - t0
+    counts = launch_counts()  # ... and read just after it
+    apply_ms = gpu_ms(lambda: plan.apply(q, p=5), 2, 1, batches=1)
+    ops, _ = device_ops(lambda: plan.apply(q, p=5))
+    idle = idle_share(ops, apply_ms)
+    launches = sum(v[1] for v in ops.values())
+    err_pot, err_force = dual_errors(plan, src, tgt, q, out)
+    rec = {
+        "phase": "dual_points", "n_sources": npoints, "n_targets": npoints,
+        "p": 5, "host_build_s": host_build_s,
+        "first_apply_s": first_apply_s, "apply_ms": apply_ms,
+        "device_idle_share": idle, "device_launches": launches,
+        "rel_l2_err_potential": err_pot, "rel_l2_err_force": err_force,
+        "truncation_err_at": {"n_points": nbase, "potential": base_err[0],
+                              "force": base_err[1]},
+        "limit": {"potential": 3 * base_err[0], "force": 3 * base_err[1]},
+        "launch_counts": counts,
+    }
+    if out.shape != (npoints, 4) or not torch.isfinite(out).all():
+        emit(rec)
+        fail("the dual point result is not finite values of shape [n, 4]")
+    rec["unit"] = []
+    del plan, out
+    torch.cuda.empty_cache()
+    for ev in (Evaluator.FMM, Evaluator.TREECODE):
+        uplan, usrc, utgt, uq, ubuild = dual_point_plan(
+            nunit, int(0.7 * nunit), 43, UnitKernel, "float64", ev,
+            lo=(-1.0, 1.0), hi=(-0.8, 1.2))
+        got = uplan.apply(uq, p=3)
+        exact = direct_at(uplan.kernel, utgt, usrc, uq)
+        err = float((got - exact).norm() / exact.norm())
+        rec["unit"].append({
+            "evaluator": ev.value, "n_sources": nunit,
+            "n_targets": len(utgt), "host_build_s": ubuild,
+            "rel_l2_err": err, "limit": DUAL_UNIT_LIMIT})
+        del uplan
+        if not err <= DUAL_UNIT_LIMIT:
+            emit(rec)
+            fail(f"the dual unit kernel ({ev.value}) is off by {err:.3e}")
+    emit(rec)
+    if err_pot > 3 * base_err[0] or err_force > 3 * base_err[1]:
+        fail(f"dual point errors {err_pot:.3e} / {err_force:.3e} above "
+             f"three times those at {nbase} points {base_err}")
+    if counts != no_kernel_counts():
+        fail(f"the dual point apply launched {counts}: a dual plan's P2P "
+             "runs the kernel's own p2p_block")
+    return rec
+
+
+def near_panel_chunk_sweep(panels, meta, nl_s, widths=(2, 4, 8, 16)):
+    """``near_panel`` on seeded stores of the bytes and leaf pad of the
+    store ``panels`` (KT = KS), each held against its plain version and
+    timed.  First at the chunk widths ``widths``, two chunks per target
+    leaf: the bytes read (panels and staged charges) stay the same while
+    the chunks fall as 1/m0, so the fit of the time to ``rest +
+    per_chunk * chunks`` gives the cost of each chunk.  Then at the
+    store's own width with its own chunks per target leaf (``row_ptr``):
+    the kernel walks a leaf's chunks in one block, so a leaf with many
+    chunks is a tail the two-per-leaf stores do not have."""
+    gen = torch.Generator(device=DEV).manual_seed(13)
+    C0, K, Lb0 = panels["A"].shape
+    flat = torch.randn(C0 * K * Lb0, generator=gen, device=DEV)
+
+    def timed(store, m, label):
+        rec = check_near_panel(store, m, nl_s, 1e-5, label, time_it=True)
+        return {k: rec[k] for k in ("m0", "real_chunks", "rel_err", "ms",
+                                    "plain_ms", "library_ms", "bound_ms")}
+
+    rows = []
+    for m0 in widths:
+        C = flat.numel() // (K * m0 * K) // 2 * 2
+        store = {
+            "A": flat[:C * K * m0 * K].view(C, K, m0 * K),
+            "pidx": torch.randint(0, nl_s, (C, m0), generator=gen,
+                                  device=DEV, dtype=torch.int32),
+            "chunk_tgt": torch.arange(C, device=DEV).div(
+                2, rounding_mode="floor").int(),
+            "row_ptr": torch.arange(0, C + 1, 2, device=DEV,
+                                    dtype=torch.int32),
+        }
+        rows.append(timed(store, types.SimpleNamespace(
+            KT=K, KS=K, cdim=1, rdim=1, m0=m0, nl_t=C // 2),
+            f"chunk_sweep_m0_{m0}"))
+    per_chunk, rest = np.polyfit([r["real_chunks"] for r in rows],
+                                 [r["ms"] for r in rows], 1)
+    own = dict(panels, A=flat.view(C0, K, Lb0), pidx=torch.randint(
+        0, nl_s, panels["pidx"].shape, generator=gen, device=DEV,
+        dtype=torch.int32))
+    counts = (panels["row_ptr"][1:] - panels["row_ptr"][:-1]).double()
+    busy = counts[counts > 0]
+    return {
+        "store_bytes": C0 * K * Lb0 * 4, "K": K, "widths": rows,
+        "fit_per_chunk_us": float(per_chunk) * 1e3,
+        "fit_rest_ms": float(rest),
+        "own_leaves": timed(own, meta, "chunk_sweep_own_leaves"),
+        "chunks_per_target_leaf": {
+            "leaves": int(counts.numel()), "with_chunks": int(busy.numel()),
+            "mean_of_those": float(busy.mean()), "max": int(busy.max()),
+            "p99": float(torch.quantile(busy, 0.99)),
+        },
+    }
+
+
+def pseudo_panel_targets(pts, fields):
+    """Off-surface evaluation points as zero-area pseudo-panels with the
+    POTENTIAL flag (tests/test_dual_tree.py): only their centers are
+    read."""
+    npts = len(pts)
+    return {
+        "xyz": pts, "normal": np.zeros((npts, 3)), "area": np.zeros(npts),
+        "vertices": np.zeros((npts, 3, 3)),
+        "qp_off": np.zeros((npts,) + fields["qp_off"].shape[1:]),
+        "qw": np.zeros((npts, fields["qw"].shape[1])),
+        "bc": np.zeros(npts),
+    }
+
+
+def dual_bem_plan(fields, tfields, **config):
+    t0 = time.time()
+    plan = fbt.FmmPlan(
+        LaplaceBEMKernel(K=3), fields,
+        fbt.FMMConfig(**{**dict(ncrit=64, leaf_pad=64, dtype="float32",
+                                max_p=10), **config}),
+        target_fields=tfields, device=DEV,
+    )
+    return plan, time.time() - t0
+
+
+def path_dual_bem_exterior(recursions, ntargets):
+    """Panels as sources, off-surface points as targets: the O(N)
+    exterior evaluation (LaplaceBEM.cpp:352-371).  The cached dual plan
+    (leaf pad 64): ``near_panel`` on its store, ``apply`` at p=10 against
+    ``eval_exterior`` on 1,000 targets.  Then the dual plans of unequal
+    leaf pads (K_s != K_t): ``otf_tile`` on the on-the-fly one (both
+    sides packed at the wider pad), ``near_panel`` on the cached one
+    (KT != KS), their results against each other.  Returns (checks,
+    kernels-line entries)."""
+    torch.cuda.empty_cache()
+    fields = make_panels(unit_sphere(recursions), K=3)
+    n = len(fields["xyz"])
+    rng = np.random.default_rng(51)
+    dirs = rng.standard_normal((ntargets, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    pts = dirs * rng.uniform(1.05, 3.0, (ntargets, 1))
+    tfields = pseudo_panel_targets(pts, fields)
+    q = rng.standard_normal(n).astype(np.float32)
+
+    plan, host_build_s = dual_bem_plan(fields, tfields)
+    t0 = time.time()
+    panels, meta = plan.near_panels()
+    torch.cuda.synchronize()
+    emit_plan_build("dual_bem_exterior_plan_build", plan, host_build_s,
+                    near_store_s=time.time() - t0,
+                    near_store_bytes=nbytes_of(panels["A"]))
+    if len(plan.p2p_src_slot) == 0:
+        fail("the dual exterior plan has no near pairs")
+    nl_s = len(plan.src.leaf_ids)
+    near = check_near_panel(panels, meta, nl_s, 1e-5, "dual_bem_exterior",
+                            time_it=True)
+    reset_launch_counts()  # every kernel count, just before the run
+    out = plan.apply(q, p=10)
+    torch.cuda.synchronize()
+    counts = launch_counts()  # ... and read just after it
+    apply_ms = gpu_ms(lambda: plan.apply(q, p=10), 3, 1, batches=1)
+    ops, _ = device_ops(lambda: plan.apply(q, p=10))
+    idle = idle_share(ops, apply_ms)
+    launches = sum(v[1] for v in ops.values())
+    idx = np.random.default_rng(17).choice(ntargets, 1000, replace=False)
+    t0 = time.time()
+    kern = LaplaceBEMKernel(K=3)
+    exact = np.concatenate([
+        kern.eval_exterior(fields, q.astype(np.float64), pts[idx[i:i + 100]])
+        for i in range(0, len(idx), 100)])
+    exact_s = time.time() - t0
+    got = out[torch.as_tensor(idx, device=DEV), 0].double().cpu().numpy()
+    err = float(np.linalg.norm(got - exact) / np.linalg.norm(exact))
+    rec = {
+        "phase": "dual_bem_exterior", "n_panels": n, "n_targets": ntargets,
+        "p": 10, "apply_ms": apply_ms, "device_idle_share": idle,
+        "device_launches": launches, "launch_counts": counts,
+        "rel_l2_err_vs_eval_exterior": err, "limit": DUAL_EXTERIOR_LIMIT,
+        "sample": 1000, "eval_exterior_s": exact_s,
+        # where the kernel's time on this store goes
+        "near_panel_chunk_sweep": near_panel_chunk_sweep(panels, meta,
+                                                         nl_s),
+    }
+    emit(rec)
+    if out.shape != (ntargets, 1) or not torch.isfinite(out).all():
+        fail("the dual exterior result is not finite values of shape [n, 1]")
+    if not err <= DUAL_EXTERIOR_LIMIT:
+        fail(f"the dual exterior potential is off eval_exterior by {err:.3e}")
+    if counts != {**no_kernel_counts(), "near_panel": 1}:
+        fail(f"the dual exterior apply launched {counts}")
+    entries = [dict(kernel_entry(
+        "near_panel", "fmm_bem_tpu/ops/near_panel.py:539", near,
+        counts["near_panel"]), path="dual_bem_exterior")]
+    del plan, panels, meta, out
+    torch.cuda.empty_cache()
+
+    # unequal leaf pads: the on-the-fly plan and the cached one of the
+    # same trees
+    cfg = dict(leaf_pad=None, max_level=DUAL_UNEQUAL_MAX_LEVEL)
+    oplan, o_build_s = dual_bem_plan(fields, tfields, near_mode="otf", **cfg)
+    cplan, c_build_s = dual_bem_plan(fields, tfields, **cfg)
+    K_s, K_t = oplan.src.leaf_pad, oplan.tgt.leaf_pad
+    ot = oplan.near_panels()[0]["otf_tiles"]
+    cpanels, cmeta = cplan.near_panels()
+    torch.cuda.synchronize()
+    emit_plan_build("dual_bem_exterior_otf_plan_build", oplan, o_build_s,
+                    cached_host_build_s=c_build_s,
+                    otf_tile_width=int(ot["sb_src"].shape[2]),
+                    cached_store_bytes=nbytes_of(cpanels["A"]))
+    if K_s == K_t or ot["sb_src"].shape[2] != max(K_s, K_t):
+        fail(f"the unequal-pad dual plans have K_s {K_s}, K_t {K_t} and "
+             f"OTF tiles {tuple(ot['sb_src'].shape)}")
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    K = max(K_s, K_t)
+    smask = torch.zeros((len(oplan.src.leaf_ids), K), dtype=torch.bool,
+                        device=DEV)
+    smask[:, :K_s] = torch.as_tensor(oplan.src.leaf_body_mask, device=DEV)
+    ql = torch.randn(smask.shape, generator=gen, device=DEV) * smask
+    otf_rec = check_otf_tile(oplan, ot, ql, 0.0, 1e-5,
+                             "dual_bem_exterior_otf", time_it=True)
+    near2 = check_near_panel(cpanels, cmeta, len(cplan.src.leaf_ids), 1e-5,
+                             "dual_bem_exterior_unequal_pads", time_it=True)
+    reset_launch_counts()
+    got = oplan.apply(q, p=10)
+    torch.cuda.synchronize()
+    o_counts = launch_counts()
+    want = cplan.apply(q, p=10)
+    rel = float((got - want).abs().max() / want.abs().max())
+    rec = {
+        "phase": "dual_bem_exterior_otf", "K_s": K_s, "K_t": K_t,
+        "max_level": DUAL_UNEQUAL_MAX_LEVEL, "p": 10,
+        "rel_max_diff_vs_cached": rel, "limit": DUAL_OTF_LIMIT,
+        "launch_counts": o_counts,
+        "otf_apply_ms": gpu_ms(lambda: oplan.apply(q, p=10), 3, 1, batches=1),
+        "cached_apply_ms": gpu_ms(lambda: cplan.apply(q, p=10), 3, 1,
+                                  batches=1),
+    }
+    emit(rec)
+    if not rel <= DUAL_OTF_LIMIT:
+        fail(f"the on-the-fly dual plan differs from the cached one by "
+             f"{rel:.3e}")
+    if o_counts != {**no_kernel_counts(), "otf_tile": 1}:
+        fail(f"the on-the-fly dual apply launched {o_counts}")
+    entries.append(dict(kernel_entry(
+        "otf_tile", "fmm_bem_tpu/ops/otf_tile.py:80", otf_rec,
+        o_counts["otf_tile"]), path="dual_bem_exterior_otf"))
+    return [near, otf_rec, near2], entries
+
+
+def coo_first_kind(plan, n):
+    """The first-kind relaxed solve through ``solve_plan`` (its mode
+    beside the record) and its true residual."""
+    ones = np.ones(n, np.float32)
+    b = plan.apply_flipped_bc(ones, p=10)[:, 0].cpu().numpy()
+    (x, info, mode), seconds = timed_solve(
+        lambda: solve_plan(plan, b, first_kind_config()))
+    rec = solve_record(x, info, mode, seconds, n)
+    rec["true_residual"] = true_residual(plan, b, x)
+    return rec
+
+
+def phase_coo_replay(cached, fields, cached_solve, recursions):
+    """The COO near-field replay (``near_panel=False``) on the cached
+    path's sphere: its host build timed a recursion smaller first, and
+    the full sphere built only where that predicts at most
+    ``COO_FULL_HOST_BUDGET_S``; the drop tolerance at the 25th percentile
+    of the entry magnitudes on the smaller sphere; the first-kind solve
+    (mode ``"device"``: the body-order operator) against the cached
+    plan's; the Stokes COO plan against its panel plan."""
+    small = recursions - 1
+    sfields = make_panels(unit_sphere(small), K=3)
+    t0 = time.time()
+    splan, ns = build_plan(small, "float32", near_panel=False,
+                           fields=sfields)
+    small_s = time.time() - t0
+    predicted = 4.0 * small_s
+    full = predicted <= COO_FULL_HOST_BUDGET_S
+    rec = {"phase": "coo_replay", "small_panels": ns,
+           "small_entries": int(len(splan.near_rows)),
+           "small_host_build_s": small_s,
+           "predicted_full_host_build_s": predicted,
+           "budget_s": COO_FULL_HOST_BUDGET_S, "full_ran": full}
+
+    # the drop tolerance (tests/test_plan.py's case)
+    mags = np.abs(np.asarray(splan.near_vals)).max(axis=1)
+    tol = float(np.quantile(mags, 0.25))
+    dplan, _ = build_plan(small, "float32", near_panel=False, droptol=tol,
+                          fields=sfields)
+    kept = len(dplan.near_rows) / len(splan.near_rows)
+    q = np.random.default_rng(3).standard_normal(ns).astype(np.float32)
+    r0 = splan.apply(q, p=8)[:, 0].double()
+    r1 = dplan.apply(q, p=8)[:, 0].double()
+    drop_diff = float((r1 - r0).norm() / r0.norm())
+    rec["droptol"] = {"tol": tol, "kept_fraction": kept,
+                      "matvec_rel_diff": drop_diff}
+    del dplan
+    if not (0.5 < kept < 0.9 and 0.0 < drop_diff < 0.5):
+        emit(rec)
+        fail(f"droptol: kept {kept:.3f} (want 0.5-0.9), matvec moved "
+             f"{drop_diff:.3e} (want 0-0.5)")
+
+    if full:
+        del splan
+        t0 = time.time()
+        plan, n = build_plan(recursions, "float32", near_panel=False,
+                             fields=fields)
+        rec["full_host_build_s"] = time.time() - t0
+        want = cached_solve
+    else:
+        plan, n = splan, ns
+        cplan, _ = build_plan(small, "float32", fields=sfields)
+        want = coo_first_kind(cplan, n)
+        del cplan
+    d = plan.device_data(10)
+    rec.update({
+        "n_panels": n, "entries": int(len(plan.near_rows)),
+        "device_bytes": nbytes_of(d["near_vals"], d["near_rows"],
+                                  d["near_cols"]),
+        "host_bytes": int(plan.near_vals.nbytes + plan.near_rows.nbytes
+                          + plan.near_cols.nbytes),
+    })
+    reset_launch_counts()
+    got = coo_first_kind(plan, n)
+    counts = launch_counts()
+    ones = np.ones(n, np.float32)
+    rec.update({"first_kind_coo": got, "first_kind_cached": want,
+                "launch_counts": counts,
+                "matvec_ms_p10": gpu_ms(lambda: plan.apply(ones, p=10), 3, 1,
+                                        batches=1)})
+    del plan
+    torch.cuda.empty_cache()
+
+    # Stokes: the COO plan against the panel plan of 2,048 panels
+    sp, sfields3, n3, _ = stokes_plan(5, "float32")
+    scoo, _, _, _ = stokes_plan(5, "float32", near_panel=False)
+    u = np.random.default_rng(4).standard_normal((n3, 3)).astype(np.float32)
+    a = sp.apply(u, p=STOKES_P)
+    b = scoo.apply(u, p=STOKES_P)
+    stokes_rel = float((b - a).abs().max() / a.abs().max())
+    rec["stokes"] = {"n_panels": n3, "entries": int(len(scoo.near_rows)),
+                     "rel_max_diff_vs_panels": stokes_rel,
+                     "limit": STOKES_COO_LIMIT}
+    del sp, scoo
+    emit(rec)
+    if got["mode"] != "device" or not got["converged"]:
+        fail(f"the COO solve ran mode {got['mode']}, converged "
+             f"{got['converged']}")
+    if abs(got["iterations"] - want["iterations"]) > 1:
+        fail(f"the COO solve took {got['iterations']} iterations, the "
+             f"cached one {want['iterations']}")
+    if not (got["true_residual"] <= TRUE_RESIDUAL_LIMIT
+            and got["err"] <= 5e-3):
+        fail(f"the COO solve: true residual {got['true_residual']:.3e}, "
+             f"error {got['err']:.3e}")
+    if counts != no_kernel_counts():
+        fail(f"the COO solve launched {counts}: the replay runs no hand "
+             "kernel")
+    if not stokes_rel <= STOKES_COO_LIMIT:
+        fail(f"the Stokes COO plan differs from its panel plan by "
+             f"{stokes_rel:.3e}")
+    return rec
+
+
+def run_program(mod, argv):
+    """An example program's ``main(argv)`` in-process on the card, its
+    stdout captured and every launch count read from 0.  Returns (its
+    result, printed lines, launch counts, seconds)."""
+    import io
+
+    torch.cuda.empty_cache()
+    buf = io.StringIO()
+    reset_launch_counts()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        res = mod.main(argv)
+    torch.cuda.synchronize()
+    return res, buf.getvalue().splitlines(), launch_counts(), \
+        time.time() - t0
+
+
+def program_errors(res):
+    """The errors a point program returns, by name: ``*_err``, and the
+    ncrit sweep's force error of each ncrit."""
+    out = {k: v for k, v in res.items() if k.endswith("err")}
+    for (ncrit, _), err in zip(res.get("sweep", ()),
+                               res.get("force_errs", ())):
+        out[f"force_err_ncrit_{ncrit}"] = err
+    return out
+
+
+def program_limits(base):
+    """Three times the errors of a program's base run; the ncrit sweep's
+    three times the largest of its base sweep: how much of the work is
+    near field (exact) moves with ncrit and N, so one ncrit's error
+    does not bound the same ncrit's at another N."""
+    errs = program_errors(base)
+    sweep = [v for k, v in errs.items() if k.startswith("force_err_ncrit_")]
+    return {k: 3 * (max(sweep) if k.startswith("force_err_ncrit_") else v)
+            for k, v in errs.items()}
+
+
+def phase_twin_points(npoints, nsmall, nbase):
+    """The point programs of the port in-process on the card:
+    ``serialrun`` with the Laplace kernel on ``npoints`` at p=8, the
+    stresslet on ``nsmall`` at p=10 (to ``STRESSLET_LIMIT``), the
+    treecode on ``nsmall``; ``scaling`` on ``npoints`` and its ncrit
+    sweep on ``nsmall``.  Every other error is held to three times the
+    same program's on ``nbase`` points (``program_limits``).
+    ``p2p_tile`` is held against its plain version on the tables of
+    every plan these programs launched it on: the sweep's leaf pads run
+    from about 60 to several hundred.  Returns the kernels-line entries:
+    the ``serialrun`` plan's and the sweep's widest leaf pad, timed."""
+    from fmm_bem_tpu_torch.examples import scaling as ex_scaling
+    from fmm_bem_tpu_torch.examples import serialrun as ex_serial
+
+    def serial(n, *flags):
+        return ["-N", str(n), *flags]
+
+    runs = (
+        # name, module, argv, argv of the base run, applies
+        ("serialrun_laplace", ex_serial,
+         serial(npoints, "-p", "8", "-kernel", "laplace"),
+         serial(nbase, "-p", "8", "-kernel", "laplace"), 2),
+        ("serialrun_stresslet", ex_serial,
+         serial(nsmall, "-p", "10", "-kernel", "stresslet"), None, 2),
+        ("serialrun_treecode", ex_serial, serial(nsmall, "-treecode"),
+         serial(nbase, "-treecode"), 2),
+        ("scaling", ex_scaling, serial(npoints), serial(nbase), 4),
+        ("scaling_ncrit_search", ex_scaling,
+         serial(nsmall, "-ncrit_search"), serial(nbase, "-ncrit_search"),
+         32),
+    )
+    entries = []
+    for name, mod, argv, base_argv, applies in runs:
+        if base_argv is not None:
+            base, _, _, _ = run_program(mod, base_argv)
+            limits = program_limits(base)
+            del base
+        else:
+            limits = {"err": STRESSLET_LIMIT}
+        res, lines, counts, seconds = run_program(mod, argv)
+        plans = res.pop("plans", None) or [res.pop("plan")]
+        res.pop("result", None)
+        errors = program_errors(res)
+        kernel = None if "stresslet" in name else "p2p_tile"
+        want = {**no_kernel_counts(), **({kernel: applies} if kernel
+                                         else {})}
+        rec = {"phase": f"twin_{name}", "argv": argv, "seconds": seconds,
+               "result": {k: v for k, v in res.items()
+                          if k not in ("sweep", "force_errs")},
+               "errors": errors, "launch_counts": counts,
+               "expected_launches": want, "limits": limits,
+               "printed": [ln for ln in lines if "error" in ln
+                           or "time" in ln or "matvec" in ln][:12]}
+        if "sweep" in res:
+            rec["sweep"] = res["sweep"]
+        if kernel:
+            # the programs ran at p=8: its device data is cached
+            widest = max(plans, key=lambda pl: pl.leaf_pad)
+            timed = name in ("serialrun_laplace", "scaling_ncrit_search")
+            rec["p2p_tile"] = []
+            for plan in plans:
+                ql, _ = leaf_charges(plan, torch.float32)
+                check = check_p2p_tile(
+                    plan, p2p_tables(plan.device_data(8), ql), 1e-5,
+                    f"twin_{name}_K{plan.leaf_pad}",
+                    time_it=timed and plan is widest)
+                rec["p2p_tile"].append({k: check.get(k) for k in (
+                    "case", "tiles", "rel_err", "ms", "plain_ms",
+                    "bound_ms", "bound_by", "kernel_evaluations")})
+                if timed and plan is widest:
+                    entries.append(dict(kernel_entry(
+                        "p2p_tile", "fmm_bem_tpu/ops/p2p_tile.py:180",
+                        check, counts["p2p_tile"]), path=f"twin_{name}"))
+        del plans
+        emit(rec)
+        if counts != want:
+            fail(f"the {name} program launched {counts}, not {want}")
+        if sorted(errors) != sorted(limits):
+            fail(f"the {name} program returned the errors {sorted(errors)},"
+                 f" its limits are for {sorted(limits)}")
+        for key, limit in limits.items():
+            if not errors[key] <= limit:  # a NaN fails too
+                fail(f"the {name} program's {key} {errors[key]:.3e} above "
+                     f"{limit:.3e}")
+    return entries
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -2655,11 +3324,15 @@ def main():
     stokes_recursions = 7
     yukawa_recursions, yukawa_small, point_scale = 8, 6, 1.0
     twin_recursions = 5
+    dual_targets, nsmall = 200_000, 100_000
     if args.quick:
         recursions, otf_recursions, npoints, nbase = 6, 6, 50_000, 8192
         stokes_recursions = 5
         yukawa_recursions, yukawa_small, point_scale = 6, 5, 0.05
-        twin_recursions = 4
+        # the Yukawa program's 512 panels are 5.66 % off the analytic
+        # value, above the 5e-2 the twin is held to: 2,048 as in full
+        twin_recursions = 5
+        dual_targets, nsmall = 20_000, 10_000
 
     env = phase_env()
     build_s, checks, local_otf = phase_kernels_small()
@@ -2710,6 +3383,19 @@ def main():
     t0 = time.time()
     entries.extend(phase_twins(recursions, twin_recursions))
     emit({"phase": "twins_done", "path_s": time.time() - t0})
+    t0 = time.time()
+    path_dual_points(npoints, nsmall, nbase)
+    emit({"phase": "dual_points_done", "path_s": time.time() - t0})
+    t0 = time.time()
+    dual_checks, dual_entries = path_dual_bem_exterior(recursions,
+                                                       dual_targets)
+    emit({"phase": "kernels", "kernel": "near_panel",
+          "path": "dual_bem_exterior", "checks": dual_checks,
+          "launches_per_matvec": 1, "path_s": time.time() - t0})
+    entries.extend(dual_entries)
+    t0 = time.time()
+    entries.extend(phase_twin_points(npoints, nsmall, nbase))
+    emit({"phase": "twin_points_done", "path_s": time.time() - t0})
 
     emit({"phase": "previous_times", "measured_in_this_run": False,
           "source": "PERF.md, table of TPU kernels, before the last "

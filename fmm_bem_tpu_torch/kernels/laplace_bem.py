@@ -181,6 +181,15 @@ class LaplaceBEMKernel:
         path (G for POTENTIAL rows, dGdn for NORMAL_DERIV rows)."""
         return np.where(np.asarray(bc_rows) == 0.0, vals[:, 0], vals[:, 1])
 
+    def near_matvec(self, vals, rows, cols, fields, qm, n):
+        """COO replay of the near field (``near_panel=False``): each
+        entry's value selected by its target row's BC flag (ref
+        operator() :273-297), summed into the rows -> [n, 1]."""
+        bc_rows = fields["bc"][rows]
+        v = torch.where(bc_rows == 0.0, vals[:, 0], vals[:, 1])
+        out = torch.zeros(n, dtype=qm.dtype, device=qm.device)
+        return out.index_add_(0, rows, v * qm[cols])[:, None]
+
     def near_block_device(self, tf_rows, sf_rows, tmask, smask):
         """Regular K-point quadrature interaction blocks of a batch of
         leaf pairs, evaluated on device (the smooth branch of ref

@@ -329,6 +329,18 @@ class StokesBEMKernel:
         sel = (np.asarray(bc_rows) == VELOCITY)[:, None, None]
         return np.where(sel, vals[:, 0], vals[:, 1])
 
+    def near_matvec(self, vals, rows, cols, fields, qm, n):
+        """COO replay of the near field (``near_panel=False``): each
+        entry's 3x3 block chosen by its target row's BC flag, applied to
+        the source's 3-vector and summed into the rows -> [n, 3]."""
+        bc_rows = fields["bc"][rows]
+        blocks = torch.where(
+            (bc_rows == VELOCITY)[:, None, None], vals[:, 0], vals[:, 1]
+        )
+        contrib = torch.einsum("eij,ej->ei", blocks, qm[cols])
+        out = torch.zeros((n, 3), dtype=qm.dtype, device=qm.device)
+        return out.index_add_(0, rows, contrib)
+
     # ----- dense oracle -----
     def dense_matrix(self, fields):
         """[3N, 3N] dense operator honoring target BC flags."""

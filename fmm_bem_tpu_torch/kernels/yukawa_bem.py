@@ -90,6 +90,8 @@ class YukawaBEMKernel(YukawaKernel):
     #: device regular-quadrature block builder shared with Laplace BEM
     #: (the kappa attribute switches on the screening factors)
     near_block_device = LaplaceBEMKernel.near_block_device
+    #: the COO replay's BC-selected product, shared with Laplace BEM
+    near_matvec = LaplaceBEMKernel.near_matvec
 
     # ----- dense oracle -----
     def dense_matrix(self, fields):

@@ -1,13 +1,18 @@
-"""The three BEM example programs of the PyTorch port
+"""The example programs of the PyTorch port
 (``fmm_bem_tpu_torch/examples/``) against the JAX package's
-(``examples/*.py``): both run in-process on the CPU at f64 with the same
-flags, and the errors each prints are compared to 1e-9 relative (the
-same host GMRES loop on the same operators; sums in another order).
-The Stokes programs are compared with the reference's traction sign
-put into the port (ROADMAP.md C); its -fmgmres path is held to the JAX
-package in tests/test_torch_fmgmres.py."""
+(``examples/*.py``): both run in-process on the CPU with the same flags.
+
+- The three BEM programs at f64: the errors each prints are compared to
+  1e-9 relative (the same host GMRES loop on the same operators; sums in
+  another order).  The Stokes programs are compared with the
+  reference's traction sign put into the port (ROADMAP.md C); its
+  -fmgmres path is held to the JAX package in tests/test_torch_fmgmres.py.
+- The point programs ``serialrun`` and ``scaling``: in
+  tests/test_torch_point_programs.py.
+- ``kernels/skeleton.py``: the same members as the JAX skeleton."""
 
 import importlib.util
+import inspect
 import pathlib
 import re
 import sys
@@ -18,6 +23,7 @@ import torch
 
 torch.set_num_threads(1)
 
+import fmm_bem_tpu_torch as T
 from fmm_bem_tpu_torch.examples import laplace_bem as t_laplace
 from fmm_bem_tpu_torch.examples import stokes_bem as t_stokes
 from fmm_bem_tpu_torch.examples import yukawa_bem as t_yukawa
@@ -90,3 +96,25 @@ def test_twin_prints_the_jax_programs_errors(case, capsys, monkeypatch):
     assert all(abs(float(a) - float(b)) <= 1e-12 + 1e-3 * abs(float(b))
                for (_, a, _), (_, b, _) in zip(sg, sw))
     assert res["iterations"] == len(sg) > 0
+
+
+def test_skeleton_members_are_the_jax_skeletons():
+    from fmm_bem_tpu.kernels.skeleton import SkeletonKernel as JSkel
+    from fmm_bem_tpu_torch.kernels.skeleton import SkeletonKernel as TSkel
+
+    def members(cls):
+        return {k: v for k, v in vars(cls).items() if not k.startswith("__")}
+
+    jm, tm = members(JSkel), members(TSkel)
+    assert sorted(jm) == sorted(tm)
+    for k, v in jm.items():
+        if callable(v):
+            assert inspect.signature(v) == inspect.signature(tm[k]), k
+        else:
+            assert tm[k] == v, k
+    # the template satisfies the protocol and runs as a (zero) operator
+    pts = np.random.default_rng(0).uniform(0, 1, (300, 3))
+    plan = T.FmmPlan(TSkel(), {"xyz": pts},
+                     T.FMMConfig(ncrit=16, dtype="float64", max_p=3),
+                     device="cpu")
+    assert float(plan.apply(np.ones(300), p=3).abs().max()) == 0.0

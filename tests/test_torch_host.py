@@ -6,7 +6,8 @@ the numpy code); the numpy parts of the Yukawa kernels (index tables,
 recurrences, Bessel series, translation matrices) are the same arrays
 bit for bit.  Also: importing the port pulls in neither jax nor the
 JAX package (at run time, and in the text of every source file), and
-what the port does not cover yet raises at plan build."""
+what earlier slices refused at plan build now builds and matches the
+JAX plan."""
 
 import ast
 import dataclasses
@@ -318,41 +319,100 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert out.stdout.startswith("clean")
 
 
-class _VectorBEMKernel(TKernel):
-    """Stands for Stokes: a BEM kernel with 3-vector results."""
+def _vector_results(base):
+    """A BEM kernel with 3-vector results and scalar charges (result
+    component c is c+1 times ``base``'s scalar result), for both
+    packages: the far-field evaluations and the COO replay are
+    ``base``'s, widened."""
+    scale = np.array([1.0, 2.0, 3.0])
 
-    result_dim = 3
+    class VectorBEM(base):
+        result_dim = 3
+
+        def l2p_table(self, fields, d_norm, inv_sigma, p):
+            t = super().l2p_table(fields, d_norm, inv_sigma, p)
+            return t * _like(t, scale)
+
+        def l2p(self, fields, L, d_norm, inv_sigma, p):
+            return super().l2p(fields, L, d_norm, inv_sigma, p) * _like(
+                L, scale)
+
+        def m2p(self, fields, M, d_norm, inv_sigma, p):
+            return super().m2p(fields, M, d_norm, inv_sigma, p) * _like(
+                M, scale)
+
+        def near_matvec(self, vals, rows, cols, fields, qm, n):
+            return super().near_matvec(vals, rows, cols, fields, qm, n) * (
+                _like(qm, scale))
+
+    return VectorBEM
 
 
-class _NonLinearP2M(TKernel):
-    linear_p2m = False
+def _like(x, a):
+    """``a`` as an array of ``x``'s package, device and dtype."""
+    if isinstance(x, torch.Tensor):
+        return torch.as_tensor(a, dtype=x.dtype, device=x.device)
+    import jax.numpy as jnp
+
+    return jnp.asarray(a, x.dtype)
+
+
+def _nonlinear_p2m(base):
+    class NonLinearP2M(base):
+        linear_p2m = False
+
+    return NonLinearP2M
 
 
 @pytest.mark.parametrize(
     "what,kwargs",
     [
-        # the ids each case has been reported under
+        # the ids these cases were reported under while they were
+        # refusals; each now builds and matches the JAX plan
         pytest.param("target_fields", {"target_fields": True},
                      id="target_fields-kwargs0"),
         pytest.param("near_panel=False", {"config": {"near_panel": False}},
                      id="near_panel=False-kwargs4"),
-        pytest.param("vector-valued", {"kernel": _VectorBEMKernel(K=3)},
+        pytest.param("vector-valued", {"kernel": _vector_results,
+                                       "config": {"near_panel": False}},
                      id="vector-valued-kwargs5"),
-        pytest.param("linear P2M", {"kernel": _NonLinearP2M(K=3)},
+        pytest.param("linear P2M", {"kernel": _nonlinear_p2m},
                      id="linear P2M-kwargs6"),
     ],
 )
 def test_unported_features_raise_at_plan_build(what, kwargs):
-    fields = make_panels(unit_sphere(2), K=3)
-    cfg = T.FMMConfig(
-        ncrit=8, dtype="float64", max_p=4, **kwargs.get("config", {})
-    )
-    with pytest.raises(NotImplementedError, match=what):
-        T.FmmPlan(
-            kwargs.get("kernel", TKernel(K=3)), fields, cfg,
-            target_fields=fields if "target_fields" in kwargs else None,
-            device="cpu",
-        )
+    """What these cases refused before the port covered them (a dual
+    plan, the COO replay, a BEM kernel whose result and charge
+    dimensions differ, a kernel without a linear P2M table) builds, and
+    its ``apply`` and ``apply_flipped_bc`` are the JAX plan's (a
+    128-panel sphere at ncrit 8: M2L pairs beside the near field)."""
+    fields = make_panels(unit_sphere(3), K=3)
+    cfg = dict(ncrit=8, dtype="float64", max_p=4, **kwargs.get("config", {}))
+    wrap = kwargs.get("kernel", lambda k: k)
+    tfields = fields if "target_fields" in kwargs else None
+    jp = J.FmmPlan(wrap(JKernel)(K=3), fields, J.FMMConfig(**cfg),
+                   target_fields=tfields)
+    tp = T.FmmPlan(wrap(TKernel)(K=3), fields, T.FMMConfig(**cfg),
+                   target_fields=tfields, device="cpu")
+    q = np.random.default_rng(9).standard_normal(len(fields["xyz"]))
+    for fn in ("apply", "apply_flipped_bc"):
+        want = np.asarray(getattr(jp, fn)(q, p=3))
+        got = getattr(tp, fn)(q, p=3).numpy()
+        assert got.shape == want.shape, what
+        assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max(), what
+    if what == "target_fields":
+        # the same panels as targets: the single-tree operator
+        single = T.FmmPlan(TKernel(K=3), fields, T.FMMConfig(**cfg),
+                           device="cpu")
+        want = single.apply(q, p=3)
+        got = tp.apply(q, p=3)
+        assert (got - want).abs().max() <= 1e-12 * want.abs().max()
+    elif what == "vector-valued":
+        got = tp.apply(q, p=3).numpy()
+        np.testing.assert_allclose(got[:, 1], 2.0 * got[:, 0], rtol=1e-15)
+    elif what == "linear P2M":
+        assert "p2m_tab" not in tp.variant_aux(3)
+        assert "s_fields_t" in tp.variant_aux_slots(3)
 
 
 @pytest.mark.parametrize(

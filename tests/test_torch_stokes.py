@@ -668,5 +668,61 @@ def test_check_supported(which):
     if which == "stokeslet":
         T.FmmPlan(tst.StokesKernel(), {"xyz": pts}, cfg, device="cpu")
     else:
-        with pytest.raises(NotImplementedError, match="linear P2M"):
-            T.FmmPlan(tst.StressletKernel(), {"xyz": pts}, cfg, device="cpu")
+        # once a refusal: the stresslet builds and runs, see
+        # test_stresslet_through_the_plan
+        plan = T.FmmPlan(tst.StressletKernel(), {"xyz": pts}, cfg,
+                         device="cpu")
+        assert "p2m_tab" not in plan.variant_aux(3)
+        assert plan.solver_ops_slots() is None  # 6 charges, 3 results
+
+
+def test_stresslet_through_the_plan():
+    """``FmmPlan(StressletKernel())``: no linear P2M table (the kernel's
+    own ``p2m`` runs per matvec on the slot-gathered fields), 6-vector
+    charges and 3-vector results; against the JAX plan (1e-12), direct
+    summation (5e-4, the bar of the JAX package's own test) and its own
+    body-order matvec (1e-12)."""
+    rng = np.random.default_rng(5)
+    n = 1200
+    pts = rng.uniform(0, 1, (n, 3))
+    q = rng.standard_normal((n, 6))
+    cfg = dict(ncrit=32, dtype="float64", max_p=10)
+    jplan = J.FmmPlan(jst.StressletKernel(), {"xyz": pts},
+                      J.FMMConfig(**cfg))
+    tplan = T.FmmPlan(tst.StressletKernel(), {"xyz": pts},
+                      T.FMMConfig(**cfg), device="cpu")
+    got = tplan.apply(q, p=10)
+    assert got.shape == (n, 3)
+    assert rel(got, jplan.apply(q, p=10)) <= TOL
+    exact = tplan.kernel.direct(
+        torch.as_tensor(pts), torch.as_tensor(pts), torch.as_tensor(q))
+    assert rel(got, exact) < 5e-4
+    assert rel(tplan.apply_body_order(q, p=10), got) <= TOL
+
+
+@pytest.mark.parametrize("near_panel", [True, False],
+                         ids=["slot_route", "coo_body_order"])
+def test_nonlinear_p2m_instance(near_panel):
+    """A Laplace BEM kernel instance with ``linear_p2m = False`` (as in
+    the JAX package's tests/test_ops.py): no P2M table, the kernel's own
+    ``p2m`` per matvec — in the slot route (cached panels) and in body
+    order (the COO replay) — gives the table plan's matvec (1e-11) and
+    the JAX plan's (1e-12)."""
+    from fmm_bem_tpu.kernels.laplace_bem import LaplaceBEMKernel as JLB
+    from fmm_bem_tpu_torch.kernels.laplace_bem import LaplaceBEMKernel as TLB
+
+    fields = make_panels(unit_sphere(3), K=3)
+    q = np.random.default_rng(3).standard_normal(len(fields["xyz"]))
+    cfg = dict(ncrit=8, dtype="float64", max_p=6)  # a tree with M2L pairs
+    table = T.FmmPlan(TLB(K=3), fields, T.FMMConfig(**cfg), device="cpu")
+    assert len(table.lists.m2l_pairs) > 0
+    tk, jk = TLB(K=3), JLB(K=3)
+    tk.linear_p2m = jk.linear_p2m = False
+    cfg["near_panel"] = near_panel
+    tp = T.FmmPlan(tk, fields, T.FMMConfig(**cfg), device="cpu")
+    jp = J.FmmPlan(jk, fields, J.FMMConfig(**cfg))
+    assert "p2m_tab" not in tp.variant_aux(5)
+    assert tp.has_slot_route == near_panel
+    got = tp.apply(q, p=5)
+    assert (got - table.apply(q, p=5)).abs().max() <= 1e-11
+    assert rel(got, jp.apply(q, p=5)) <= TOL
