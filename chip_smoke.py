@@ -5,7 +5,9 @@ Run as ``python3 chip_smoke.py`` from the root of a checkout.  It imports
 only ``fmm_bem_tpu_torch``, builds the CUDA kernels from the sources in
 the checkout (``nvcc``, first use, one process per source, all started
 together), holds every kernel against its plain PyTorch version on the
-card, and drives the port's paths at full size:
+card (``near_panel`` also against the plain model of its two passes, on
+seeded ragged stores that meet every way a target leaf can fall on the
+block edges), and drives the port's paths at full size:
 
 - the cached path: a Laplace BEM unit sphere of 131,072 panels (K=3,
   ncrit=64, leaf_pad=64, f32, max_p=10) -> ``FmmPlan`` -> 50 chained
@@ -75,6 +77,7 @@ counts, 20,000 dual targets) for a look of a few minutes.
 import argparse
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -231,12 +234,14 @@ POINT_KERNEL_RUNS = (
 POINT_KERNEL_BASE = 8192
 
 #: each kernel's time at its path's shapes in PERF.md's table before its
-#: last redesign (f32, NVIDIA H100 80GB HBM3 at 700.00 W): near_panel and
-#: otf_tile from run C, panel_contract from run G, timed then one
-#: synchronised call at a time; p2p_tile from run N, launches back to
-#: back as now.  Printed on a line of its own for the reader to set
-#: beside this run's times: not measured here
-PREVIOUS_MS = {"near_panel": 0.490, "panel_contract": 0.885,
+#: last redesign (f32, NVIDIA H100 80GB HBM3 at 700.00 W): near_panel
+#: from run W (one block per target leaf, on the cached store: its latest
+#: time before the chunk-tiled design) and p2p_tile from run N, launches
+#: back to back as now; otf_tile from run C and panel_contract from run
+#: G, timed then one synchronised call at a time.  Printed on a line of
+#: its own for the reader to set beside this run's times: not measured
+#: here
+PREVIOUS_MS = {"near_panel": 0.4434, "panel_contract": 0.885,
                "otf_tile": 3.086, "p2p_tile": 2.938}
 
 DEV = torch.device("cuda")
@@ -269,6 +274,39 @@ def gpu_ms(fn, reps, warmup=2, batches=3):
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b) / reps)
+    return statistics.median(times)
+
+
+def graph_ms(fn, reps=20):
+    """Milliseconds per call of ``fn()`` replayed from a CUDA graph of
+    one call (captured after a warm-up on a side stream): the card's
+    time without the host's launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = gpu_ms(graph.replay, reps)
+    del graph
+    return ms
+
+
+def host_us(fn, reps=20):
+    """Microseconds of the host's time per call of ``fn()``: the median
+    of three batches of ``reps`` calls enqueued back to back, each batch
+    timed on the host's clock before the card is waited for."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        times.append((time.perf_counter() - t0) / reps * 1e6)
+        torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -726,59 +764,157 @@ def check_bad_tables(ot, tb, ql, dtype, tol):
     return checks
 
 
-def check_near_panel(panels, meta, nl_src, tol, label, time_it=False):
+def near_panel_bound(panels, meta, ql):
+    """The least time of the near_panel product on this store: the
+    larger of its bytes over the memory rate and its multiply-adds over
+    the peak of its type.  Bytes: each real chunk's rows up to the last
+    needed column ``m0 * KSc`` (the rest of ``Lb`` is zero padding), in
+    whole 32-byte sectors (every row starts on one), the chunk's
+    indices, the row pointer, the charges and the result, each once;
+    dummy chunks are never read."""
+    A, rp = panels["A"], panels["row_ptr"]
+    _, KTr, _ = A.shape
+    esz = A.element_size()
+    n_real = int(rp[-1])
+    needed = meta.m0 * meta.KS * meta.cdim
+    row_bytes = -(-needed * esz // 32) * 32
+    nbytes = (n_real * KTr * row_bytes + n_real * meta.m0 * 4
+              + rp.numel() * 4 + ql.numel() * esz + meta.nl_t * KTr * esz)
+    flops = 2.0 * n_real * KTr * needed
+    peak = PEAK_F32_FLOPS if A.dtype == torch.float32 else PEAK_F64_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "needed_bytes_of_A": n_real * KTr * row_bytes,
+            "needed_columns": needed, "real_chunks": n_real}
+
+
+def check_near_panel(panels, meta, nl_src, tol, label, time_it=False,
+                     tiled_model=False):
     """The near_panel kernel against its plain version on the card, on a
-    seeded charge table; optionally timed beside its plain version, the
-    library yardstick and its bound."""
+    seeded charge table, twice (no atomics: the bits must repeat), with
+    the leaves without chunks exactly 0; the tiling it ran with (chunks
+    per block S, grid, carry bytes).  With ``tiled_model`` also against
+    the plain model of its two passes at that S.  Optionally timed beside
+    its plain version, its bound (the real chunks' needed columns, whole
+    sectors, of A), and in turns (three rounds) beside the library
+    yardstick and one PyTorch reduction over the bytes of A the kernel
+    reads; then the kernel and the yardstick replayed from CUDA graphs,
+    which time the card without the host's launches."""
     A = panels["A"]
+    C, KTr, Lb = A.shape
     gen = torch.Generator(device=DEV).manual_seed(11)
     ql = torch.randn(
         (nl_src, meta.KS * meta.cdim), generator=gen, dtype=A.dtype,
         device=DEV,
     )
     got = npl.panel_matvec(panels, meta, ql)
+    again = npl.panel_matvec(panels, meta, ql)
     torch.cuda.synchronize()
     want = npl.panel_matvec_reference(panels, meta, ql)
     if got.shape != want.shape or not torch.isfinite(got).all():
         fail(f"near_panel[{label}]: bad output {tuple(got.shape)}")
     max_abs = float((got - want).abs().max())
     rel = max_abs / float(want.abs().max())
+    rp = panels["row_ptr"]
+    empty = rp[1:] == rp[:-1]
+    tiling = npl.near_tiling(C, KTr, Lb, A.element_size(),
+                             npl.sm_count(DEV))
     rec = {
         "kernel": "near_panel", "case": label,
         "dtype": str(A.dtype).replace("torch.", ""),
         "A_shape": list(A.shape), "m0": meta.m0, "nl_t": meta.nl_t,
         "max_abs_err": max_abs, "rel_err": rel, "tol": tol,
+        "bit_equal_twice": bool(torch.equal(got, again)),
+        "empty_leaves": int(empty.sum()),
+        "empty_leaves_exact_zero": bool((got[empty] == 0).all()),
+        "S": tiling.S, "grid": list(tiling.grid),
+        "threads_per_block": tiling.warps * 32,
+        "carry_bytes": math.prod(tiling.carry_shape(KTr))
+        * A.element_size(),
     }
-    if rel > tol:
+    if tiled_model:
+        model = npl.panel_matvec_tiled_reference(panels, meta, ql, tiling.S)
+        rec["tiled_model_rel_err"] = float(
+            (got - model).abs().max() / want.abs().max())
+        rec["tiled_model_vs_plain_rel_err"] = float(
+            (model - want).abs().max() / want.abs().max())
+    worst = max(rel, rec.get("tiled_model_rel_err", 0.0),
+                rec.get("tiled_model_vs_plain_rel_err", 0.0))
+    if not (worst <= tol and rec["bit_equal_twice"]
+            and rec["empty_leaves_exact_zero"]):
         emit(rec)
-        fail(f"near_panel[{label}] disagrees with its plain version: "
-             f"rel {rel:.3e} > {tol:.1e}")
+        fail(f"near_panel[{label}]: rel {worst:.3e} (limit {tol:.1e}), "
+             f"two runs bit-equal {rec['bit_equal_twice']}, leaves without "
+             f"chunks exactly 0 {rec['empty_leaves_exact_zero']}")
     if time_it:
-        C, KTr, Lb = A.shape
         esz = A.element_size()
-        n_real = int(panels["row_ptr"][-1])  # dummy chunks are never read
-        nbytes = (
-            n_real * KTr * Lb * esz + n_real * meta.m0 * 4
-            + panels["row_ptr"].numel() * 4 + ql.numel() * esz
-            + meta.nl_t * KTr * esz
-        )
-        flops = 2.0 * n_real * KTr * Lb
-        peak = PEAK_F32_FLOPS if A.dtype == torch.float32 else PEAK_F64_FLOPS
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = flops / peak * 1e3
-        rec["ms"] = gpu_ms(lambda: npl.panel_matvec(panels, meta, ql), 20)
+        bound = near_panel_bound(panels, meta, ql)
+        n_real, needed = bound["real_chunks"], bound["needed_columns"]
+        # yardstick: one library call on charges gathered beforehand;
+        # beside it a plain read of the bytes of A the kernel reads (the
+        # real chunks' columns up to the last needed group of four)
+        xb = npl.chunk_charge_rows(panels, ql)[:, :, None].contiguous()
+        real = A[:n_real, :, :-(-needed // 4) * 4]
+        timed = {"near_panel": lambda: npl.panel_matvec(panels, meta, ql),
+                 "torch.bmm": lambda: torch.bmm(A, xb),
+                 "A.sum": lambda: real.sum()}
+        rounds = {k: [] for k in timed}
+        for order in (list(timed), list(timed)[::-1], list(timed)):
+            for k in order:
+                rounds[k].append(gpu_ms(timed[k], 20))
+        ms = {k: statistics.mean(v) for k, v in rounds.items()}
+        rec["timing_rounds_ms"] = rounds
+        rec["ms"] = ms["near_panel"]
+        rec["library_ms"] = ms["torch.bmm"]
+        rec["read_of_A_ms"] = ms["A.sum"]
         rec["plain_ms"] = gpu_ms(
             lambda: npl.panel_matvec_reference(panels, meta, ql), 5
         )
-        # yardstick: one library call on charges gathered beforehand
-        xb = npl.chunk_charge_rows(panels, ql)[:, :, None].contiguous()
-        rec["library_ms"] = gpu_ms(lambda: torch.bmm(A, xb), 10)
-        rec["bound_ms"] = max(t_bytes, t_ops)
-        rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        # the card's time alone: one call replayed from a CUDA graph; and
+        # the host's: the wrapper's calls enqueued without waiting
+        rec["graph_ms"] = graph_ms(lambda: npl.panel_matvec(panels, meta, ql))
+        rec["library_graph_ms"] = graph_ms(lambda: torch.bmm(A, xb))
+        rec["host_us_per_call"] = host_us(
+            lambda: npl.panel_matvec(panels, meta, ql))
+        rec["library_host_us_per_call"] = host_us(lambda: torch.bmm(A, xb))
+        rec.update(bound)
         rec["store_bytes"] = C * KTr * Lb * esz
-        rec["real_chunks"] = n_real
-        del xb
+        del xb, real
     return rec
+
+
+#: seeded ragged near_panel stores (C, KTr, Lb, KSc, m0), 7 dummy chunks
+#: last: chunk tiles small enough that the tiling takes several chunks
+#: per block (KTr 12: S 10 at f32, 5 at f64 on 132 SMs), and a KTr of two
+#: row tiles (72)
+NEAR_RAGGED_STORES = {"ragged": (12000, 12, 128, 40, 3),
+                      "ragged_rows": (2400, 72, 128, 40, 3)}
+
+
+def near_ragged_store(label, dtype):
+    """A ragged near_panel store at the S the kernel will take for it
+    (``ops/near_panel.py::ragged_leaf_counts``: every way a target leaf
+    can fall on the block edges, seeded leaves to fill, dummy chunks and
+    dummy charge tiles), on the card in ``dtype``.  Fails if the store
+    lacks a case (``ragged_cases``).  Returns (store, meta, number of
+    source leaves, what it holds)."""
+    C, KTr, Lb, KSc, m0 = NEAR_RAGGED_STORES[label]
+    esz = torch.empty((), dtype=dtype).element_size()
+    tiling = npl.near_tiling(C, KTr, Lb, esz, npl.sm_count(DEV))
+    S, nl_src, dummies = tiling.S, 64, 7
+    rng = np.random.default_rng(C + KTr)
+    counts = npl.ragged_leaf_counts(S, rng, C - dummies)
+    arrays, meta = npl.ragged_store_arrays(counts, rng, KTr, KSc, m0, Lb,
+                                           nl_src, dummies)
+    store = {k: torch.as_tensor(v).to(DEV) for k, v in arrays.items()}
+    store["A"] = store["A"].to(dtype)
+    holds, lacks = npl.ragged_cases(counts, S, arrays["pidx"], nl_src, C)
+    holds["row_tiles"] = tiling.row_tiles
+    if lacks:
+        fail(f"the near_panel store {label} lacks {lacks}: {holds}")
+    return store, meta, nl_src, holds
 
 
 def check_contract(A, xb, tol, rec):
@@ -975,9 +1111,11 @@ def point_plan(n, seed, dtype="float32", ncrit=64, kernel=LaplaceKernel,
 def phase_kernels_small():
     """Build the four kernels, then check each at f32 and f64 on a small
     problem with ragged leaves: near_panel (dummy chunks and dummy
-    tiles), otf_tile (kappa 0 and 0.5, both BC flags; then a full leaf,
-    a leaf of one real slot, a target leaf without pairs, and a warp of
-    both BC flags) on a recursion-5 sphere and at the quadrature orders
+    tiles; then the stores of ``NEAR_RAGGED_STORES``, also against the
+    plain model of the kernel's two passes), otf_tile (kappa 0 and 0.5,
+    both BC flags; then a full leaf, a leaf of one real slot, a target
+    leaf without pairs, and a warp of both BC flags) on a recursion-5
+    sphere and at the quadrature orders
     of ``OTF_SMALL_KQ`` on a recursion-4 one, and on the pair list of a
     local-evaluation (near-field-only) plan on a recursion-6 sphere
     (timed at f32; returned with the launches of one matvec of that
@@ -1003,8 +1141,20 @@ def phase_kernels_small():
         ).any():
             fail("small near_panel case has no dummy chunk / dummy tile")
         checks.append(check_near_panel(
-            panels, meta, len(plan.leaf_ids), tol, "recursion5"
+            panels, meta, len(plan.leaf_ids), tol, "recursion5",
+            tiled_model=True,
         ))
+        # ragged stores: every way a leaf meets the block edges
+        for label in NEAR_RAGGED_STORES:
+            store, smeta, nsrc, holds = near_ragged_store(label, tdt)
+            rec = check_near_panel(store, smeta, nsrc, tol, f"edge_{label}",
+                                   tiled_model=True)
+            rec["edge_cases"] = holds
+            checks.append(rec)
+            del store
+        if dtype == "float32" and not any(
+                c["case"] == "edge_ragged" and c["S"] > 1 for c in checks):
+            fail("the ragged near_panel store ran at one chunk per block")
         contract = [check_panel_contract(
             panels, meta, len(plan.leaf_ids), tol, "recursion5_scalar"
         )]
@@ -2291,7 +2441,7 @@ def phase_near_only(plan, fields, n, entries):
             "near_store_bytes": nbytes_of(panels["A"]),
             "near_panel": {k: check[k] for k in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                "rel_err", "real_chunks")},
+                "rel_err", "real_chunks", "read_of_A_ms", "graph_ms")},
             "near_only_matvec_device_launches": launches,
             "near_only_matvec_device_ops": ops,
             "fgmres_local_inner": sol, "err_limit": 5e-3, **counted,
@@ -2669,7 +2819,10 @@ def phase_twins(laplace_recursions, small_recursions):
             panels, meta, nl, 1e-5, f"twin_{name}", time_it=True)
         rec[kernel] = {k: check[k] for k in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-            "rel_err", "store_bytes", "real_chunks")}
+            "rel_err", "store_bytes", "real_chunks", "A_shape", "S",
+            "read_of_A_ms", "graph_ms", "library_graph_ms",
+            "host_us_per_call", "library_host_us_per_call",
+            "timing_rounds_ms") if k in check}
         emit(rec)
         entry = kernel_entry(
             kernel, "fmm_bem_tpu/ops/near_panel.py:" + (
@@ -2880,16 +3033,17 @@ def near_panel_chunk_sweep(panels, meta, nl_s, widths=(2, 4, 8, 16)):
     the chunks fall as 1/m0, so the fit of the time to ``rest +
     per_chunk * chunks`` gives the cost of each chunk.  Then at the
     store's own width with its own chunks per target leaf (``row_ptr``):
-    the kernel walks a leaf's chunks in one block, so a leaf with many
-    chunks is a tail the two-per-leaf stores do not have."""
+    a design that walks a leaf's chunks in one block has a tail there
+    that the two-per-leaf stores do not have."""
     gen = torch.Generator(device=DEV).manual_seed(13)
     C0, K, Lb0 = panels["A"].shape
     flat = torch.randn(C0 * K * Lb0, generator=gen, device=DEV)
 
     def timed(store, m, label):
         rec = check_near_panel(store, m, nl_s, 1e-5, label, time_it=True)
-        return {k: rec[k] for k in ("m0", "real_chunks", "rel_err", "ms",
-                                    "plain_ms", "library_ms", "bound_ms")}
+        return {k: rec[k] for k in ("m0", "S", "real_chunks", "rel_err",
+                                    "ms", "plain_ms", "library_ms",
+                                    "read_of_A_ms", "bound_ms")}
 
     rows = []
     for m0 in widths:

@@ -20,8 +20,11 @@ entry shape alone, on CPU and CUDA tensors alike:
 - ``"fused"`` (scalar entries, ``rdim * cdim == 1``: Laplace and Yukawa
   BEM): ``panel_matvec_fused``.  On CUDA tensors one hand-written
   kernel, ``csrc/near_panel.cu``, gathers the charge tiles, contracts
-  and reduces per leaf in one pass; on CPU tensors the plain PyTorch
-  version ``panel_matvec_reference`` runs.
+  and reduces per leaf: blocks take equal runs of ``S`` chunks
+  (``near_tiling``), and a second small launch sums the leaves cut by
+  block edges.  On CPU tensors the plain PyTorch version
+  ``panel_matvec_reference`` runs; ``panel_matvec_tiled_reference``
+  models the kernel's two passes for the tests.
 - ``"two_stage"`` (matrix entries, ``rdim * cdim > 1``: Stokes BEM):
   ``panel_matvec_two_stage``.  The charge tiles are gathered into chunk
   rows ``[Cpad, Lb]`` by plain tensor ops, ``panel_contract`` computes
@@ -47,6 +50,8 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
+import types
 
 import numpy as np
 import torch
@@ -510,9 +515,210 @@ def panel_matvec_reference(panels, meta, ql):
     return seg[: meta.nl_t]
 
 
-_C_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+#: bytes of ``A`` one block of the near_panel kernel aims to stream
+TILE_BYTES = 64 << 10
+#: fewest blocks per SM the near_panel tiling aims for
+MIN_BLOCKS_PER_SM = 8
+#: shared memory a block's staged charge rows may take (above it, S = 1)
+STAGE_BYTES = 32 << 10
+#: output rows per warp and warps per block at most of the kernel
+ROWS_PER_WARP, MAX_WARPS = 8, 8
 
 
+@dataclasses.dataclass(frozen=True)
+class NearTiling:
+    """How ``csrc/near_panel.cu`` cuts one store: block ``b`` takes the
+    chunks ``[b * S, (b + 1) * S)`` of the leaf-sorted list and row tile
+    ``y`` of ``row_tiles``; ``warps`` warps of ``ROWS_PER_WARP`` rows
+    each make a row tile."""
+
+    S: int
+    nblocks: int
+    warps: int
+    row_tiles: int
+
+    @property
+    def grid(self):
+        return (self.nblocks, self.row_tiles)
+
+    def carry_shape(self, KTr):
+        """Two carry slots of a row per block: the leaves its first and
+        last edge cut."""
+        return (self.nblocks, 2, KTr)
+
+
+@functools.lru_cache(maxsize=256)  # once per store shape: host time per call
+def near_tiling(C, KTr, Lb, itemsize, sms):
+    """Chunks per block ``S`` and the grid of the near_panel kernel for a
+    store ``[C, KTr, Lb]`` of ``itemsize``-byte entries on a card of
+    ``sms`` SMs, from the shapes alone (no read of the store).
+
+    Row tiles of at most 64 rows split ``KTr`` evenly, ``ceil(rows / 8)``
+    warps each.  ``S`` is the largest count that keeps a block's bytes of
+    ``A`` near ``TILE_BYTES``, leaves ``MIN_BLOCKS_PER_SM`` blocks per SM
+    and fits the staged charge rows in ``STAGE_BYTES``; never below 1.
+    A block's carries (two rows) are then at most ``2 / (S * Lb)`` of
+    its bytes: 1.6 % at ``Lb`` 128 and ``S`` 1."""
+    row_tiles = max(1, -(-KTr // (ROWS_PER_WARP * MAX_WARPS)))
+    rows = -(-KTr // row_tiles)
+    warps = max(1, -(-rows // ROWS_PER_WARP))
+    chunk_bytes = max(1, rows * Lb * itemsize)
+    S = max(1, min(
+        TILE_BYTES // chunk_bytes,
+        C * row_tiles // (max(sms, 1) * MIN_BLOCKS_PER_SM),
+        STAGE_BYTES // max(1, Lb * itemsize),
+    ))
+    return NearTiling(S=int(S), nblocks=int(-(-C // S)), warps=int(warps),
+                      row_tiles=int(row_tiles))
+
+
+_SM_COUNTS = {}
+
+
+def sm_count(device):
+    """SMs of the card ``device`` (read once per card: no sync)."""
+    idx = torch.device(device).index
+    if idx is None:
+        idx = torch.cuda.current_device()
+    if idx not in _SM_COUNTS:
+        _SM_COUNTS[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNTS[idx]
+
+
+def panel_matvec_tiled_reference(panels, meta, ql, S):
+    """Plain PyTorch model of the near_panel kernel's two passes at ``S``
+    chunks per block, for tests and ``chip_smoke.py`` only: per-block
+    partial sums of each leaf (chunk order), written to the result when
+    the leaf lies in one block and to the block's carry slot (0 where
+    the leaf starts at or before the block, else 1) when it is cut;
+    then each cut leaf sums its carries in block order and a leaf
+    without chunks gets 0.  Slots the first pass leaves unwritten hold
+    NaN, so reading one shows.  Same arguments and result as
+    ``panel_matvec_reference``."""
+    A = panels["A"]
+    C, KTr, Lb = A.shape
+    rp = panels["row_ptr"].long()
+    n_real = int(rp[-1])
+    xb = chunk_charge_rows(panels, ql)[:n_real]
+    part = torch.einsum("lts,ls->lt", A[:n_real], xb)
+    leaf = panels["chunk_tgt"][:n_real].long()
+    blk = torch.arange(n_real, device=A.device) // S
+    new = torch.ones(n_real, dtype=torch.bool, device=A.device)
+    new[1:] = (blk[1:] != blk[:-1]) | (leaf[1:] != leaf[:-1])
+    seg = torch.cumsum(new.long(), 0) - 1
+    nseg = int(seg[-1]) + 1 if n_real else 0
+    sums = torch.zeros((nseg, KTr), dtype=A.dtype, device=A.device)
+    sums.index_add_(0, seg, part)
+    s_leaf, s_blk = leaf[new], blk[new]
+    r0, r1 = rp[s_leaf], rp[s_leaf + 1]
+    cut = r0 // S != (r1 - 1) // S
+    out = torch.full((meta.nl_t, KTr), float("nan"), dtype=A.dtype,
+                     device=A.device)
+    out[s_leaf[~cut]] = sums[~cut]
+    nblocks = -(-C // S)
+    carry = torch.full((nblocks, 2, KTr), float("nan"), dtype=A.dtype,
+                       device=A.device)
+    slot = (r0 > s_blk * S).long()
+    carry[s_blk[cut], slot[cut]] = sums[cut]
+    # the fix-up: leaves without chunks, then the cut ones
+    r0, r1 = rp[:-1], rp[1:]
+    out[r1 <= r0] = 0
+    lcut = torch.nonzero((r1 > r0) & (r0 // S != (r1 - 1) // S)).flatten()
+    if lcut.numel():
+        b0, b1 = r0[lcut] // S, (r1[lcut] - 1) // S
+        acc = carry[b0, (r0[lcut] > b0 * S).long()]
+        for k in range(1, int((b1 - b0).max()) + 1):
+            more = b0 + k <= b1
+            acc[more] += carry[b0[more] + k, 0]
+        out[lcut] = acc
+    return out
+
+
+def ragged_leaf_counts(S, rng, n_real=None):
+    """Chunks per target leaf of a ragged store that meets every way a
+    leaf can fall on the near_panel kernel's block edges at ``S`` chunks
+    per block: empty first and last leaves, leaves of 0, 1, S - 1, S,
+    S + 1 and 163 chunks, a leaf that starts on a block edge and (for S
+    > 1) one that starts inside a block, each cut across three blocks or
+    more; then random leaves of 0 to 2S + 2 chunks from ``rng``: twelve,
+    or as many as make ``n_real`` chunks in all.  For tests and
+    ``chip_smoke.py`` only (``ragged_store_arrays``, ``ragged_cases``)."""
+    counts = [0, 1, max(S - 1, 0), S, S + 1, 163, 0]
+    counts.append(-sum(counts) % S)  # the next leaf starts on a block edge
+    counts.append(2 * S + 1)
+    if S > 1:
+        counts += [1, 2 * S + 1]  # ... and the next inside a block
+    if n_real is None:
+        counts.extend(rng.integers(0, 2 * S + 3, 12).tolist())
+    else:
+        while sum(counts) < n_real:
+            counts.append(int(rng.integers(0, 2 * S + 3)))
+        counts[-1] -= sum(counts) - n_real
+    counts.append(0)
+    return np.asarray(counts, np.int64)
+
+
+def ragged_store_arrays(counts, rng, KTr, KSc, m0, Lb, nl_src, dummies):
+    """numpy arrays of a scalar-entry store with ``counts[l]`` chunks for
+    target leaf l, then ``dummies`` dummy chunks, and a dummy charge tile
+    (``pidx == nl_src``) in about one tile of eight; ``A`` f64 from
+    ``rng``, its padding columns past ``m0 * KSc`` zero as a plan's are.
+    Returns (store dict of ``A``, ``pidx``, ``chunk_tgt``, ``row_ptr``;
+    meta of the store)."""
+    nl_t = len(counts)
+    n_real = int(np.sum(counts))
+    C = n_real + dummies
+    ct = np.full(C, nl_t, np.int32)
+    ct[:n_real] = np.repeat(np.arange(nl_t), counts)
+    pidx = rng.integers(0, nl_src, (C, m0)).astype(np.int32)
+    pidx[rng.random((C, m0)) < 0.125] = nl_src
+    A = rng.standard_normal((C, KTr, Lb))
+    A[:, :, m0 * KSc:] = 0
+    store = {"A": A, "pidx": pidx, "chunk_tgt": ct,
+             "row_ptr": chunk_row_ptr(ct, nl_t)}
+    meta = types.SimpleNamespace(KT=KTr, KS=KSc, rdim=1, cdim=1, m0=m0,
+                                 nl_t=nl_t, block_rows=1)
+    return store, meta
+
+
+def ragged_cases(counts, S, pidx, nl_src, C):
+    """What a ragged store of ``counts`` chunks per leaf (``C`` chunks in
+    all, dummies last) holds of the cases ``ragged_leaf_counts`` aims at,
+    at ``S`` chunks per block; and the names of those it lacks."""
+    counts = np.asarray(counts)
+    rp = np.concatenate([[0], np.cumsum(counts)])
+    busy = counts > 0
+    spans = (rp[1:] - 1) // S - rp[:-1] // S + 1
+    wide = busy & (spans >= 3)
+    holds = {
+        "S": int(S),
+        "chunks_per_leaf": sorted({int(c) for c in counts
+                                   if c in (0, 1, S - 1, S, S + 1, 163)}),
+        "empty_first_and_last": bool(counts[0] == 0 and counts[-1] == 0),
+        "most_blocks_of_a_leaf": int(spans[busy].max()),
+        "cut_leaves_from_an_edge": int((wide & (rp[:-1] % S == 0)).sum()),
+        "cut_leaves_from_inside": int((wide & (rp[:-1] % S != 0)).sum()),
+        "dummy_chunks": int(C - rp[-1]),
+        "dummy_charge_tiles": int((np.asarray(pidx) == nl_src).sum()),
+    }
+    lacks = [name for name, ok in (
+        ("chunks_per_leaf", holds["chunks_per_leaf"]
+         == sorted({0, 1, max(S - 1, 0), S, S + 1, 163})),
+        ("empty_first_and_last", holds["empty_first_and_last"]),
+        ("cut_leaves_from_an_edge", holds["cut_leaves_from_an_edge"] > 0),
+        ("cut_leaves_from_inside",
+         S == 1 or holds["cut_leaves_from_inside"] > 0),
+        ("dummy_chunks", holds["dummy_chunks"] > 0),
+        ("dummy_charge_tiles", holds["dummy_charge_tiles"] > 0),
+    ) if not ok]
+    return holds, lacks
+
+
+_C_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+
+
+@functools.lru_cache(maxsize=None)  # the handle, typed once per dtype
 def _kernel_fn(dtype):
     from fmm_bem_tpu_torch.ops import _build
 
@@ -654,14 +860,17 @@ def panel_matvec_fused(panels, meta, ql):
     result as ``panel_matvec``.
 
     Tensors on the CPU take the plain version; CUDA tensors launch the
-    hand-written kernel (and only there is
-    ``panel_matvec_fused.launches`` incremented) or raise.
+    hand-written kernel (its two passes, cut by ``near_tiling``; only
+    there is ``panel_matvec_fused.launches`` incremented, once per call)
+    or raise.
     """
-    if ql.device.type == "cpu":
+    dev = ql.device
+    if dev.type == "cpu":
         return panel_matvec_reference(panels, meta, ql)
-    if ql.device.type != "cuda":
-        raise RuntimeError(f"panel_matvec: unsupported device {ql.device}")
+    if dev.type != "cuda":
+        raise RuntimeError(f"panel_matvec: unsupported device {dev}")
     A, pidx, row_ptr = panels["A"], panels["pidx"], panels["row_ptr"]
+    chunk_tgt = panels["chunk_tgt"]
     C, KTr, Lb = A.shape
     m0 = pidx.shape[1]
     KSc = meta.KS * meta.cdim
@@ -670,33 +879,46 @@ def panel_matvec_fused(panels, meta, ql):
             f"panel_matvec: A {A.dtype} / ql {ql.dtype} must both be "
             "float32 or both float64"
         )
-    if pidx.dtype != torch.int32 or row_ptr.dtype != torch.int32:
-        raise TypeError("panel_matvec: pidx and row_ptr must be int32")
-    for name, t in (("A", A), ("pidx", pidx), ("row_ptr", row_ptr), ("ql", ql)):
-        if t.device != ql.device:
+    if (pidx.dtype != torch.int32 or row_ptr.dtype != torch.int32
+            or chunk_tgt.dtype != torch.int32):
+        raise TypeError(
+            "panel_matvec: pidx, chunk_tgt and row_ptr must be int32")
+    for name, t in (("A", A), ("pidx", pidx), ("chunk_tgt", chunk_tgt),
+                    ("row_ptr", row_ptr), ("ql", ql)):
+        if t.device != dev:
             raise RuntimeError(
-                f"panel_matvec: {name} on {t.device}, ql on {ql.device}"
+                f"panel_matvec: {name} on {t.device}, ql on {dev}"
             )
         if not t.is_contiguous():
             raise ValueError(f"panel_matvec: {name} must be contiguous")
     if (
         ql.ndim != 2 or ql.shape[1] != KSc or pidx.shape[0] != C
-        or row_ptr.shape != (meta.nl_t + 1,)
+        or chunk_tgt.shape != (C,) or row_ptr.shape != (meta.nl_t + 1,)
         or Lb % 128 != 0 or m0 * KSc > Lb
     ):
         raise ValueError(
             f"panel_matvec: shapes A {tuple(A.shape)} pidx "
-            f"{tuple(pidx.shape)} row_ptr {tuple(row_ptr.shape)} ql "
-            f"{tuple(ql.shape)} do not fit KSc={KSc}, nl_t={meta.nl_t}"
+            f"{tuple(pidx.shape)} chunk_tgt {tuple(chunk_tgt.shape)} "
+            f"row_ptr {tuple(row_ptr.shape)} ql {tuple(ql.shape)} do not "
+            f"fit KSc={KSc}, nl_t={meta.nl_t}"
         )
-    out = torch.empty((meta.nl_t, KTr), dtype=A.dtype, device=ql.device)
-    if out.numel() == 0:
-        return out
-    with torch.cuda.device(ql.device):
+    if meta.nl_t * KTr == 0:
+        return torch.empty((meta.nl_t, KTr), dtype=A.dtype, device=dev)
+    esz = A.element_size()
+    tiling = near_tiling(C, KTr, Lb, esz, sm_count(dev))
+    # one allocation a call: the result's rows, then the carry slots'
+    # (a second torch.empty took 3-9 us of host time a call on an H100
+    # host: near_panel_ab.py)
+    buf = torch.empty((meta.nl_t + tiling.nblocks * 2, KTr), dtype=A.dtype,
+                      device=dev)
+    out = buf[:meta.nl_t]
+    with torch.cuda.device(dev):
         err = _kernel_fn(A.dtype)(
-            A.data_ptr(), pidx.data_ptr(), row_ptr.data_ptr(),
-            ql.data_ptr(), out.data_ptr(), meta.nl_t, KTr, Lb, m0, KSc,
-            ql.shape[0], torch.cuda.current_stream().cuda_stream,
+            A.data_ptr(), pidx.data_ptr(), chunk_tgt.data_ptr(),
+            row_ptr.data_ptr(), ql.data_ptr(), buf.data_ptr(),
+            buf.data_ptr() + meta.nl_t * KTr * esz, meta.nl_t, KTr, Lb, m0,
+            KSc, ql.shape[0], C, tiling.S, tiling.warps,
+            torch.cuda.current_stream().cuda_stream,
         )
     panel_matvec_fused.launches += 1
     if err != 0:

@@ -265,15 +265,17 @@ PORT_SOURCES = sorted(
     for p in [
         *pathlib.Path(T.__file__).parent.rglob("*.py"),
         pathlib.Path(T.__file__).parents[1] / "chip_smoke.py",
+        pathlib.Path(T.__file__).parents[1] / "near_panel_ab.py",
     ]
 )
 
 
 @pytest.mark.parametrize("source", PORT_SOURCES)
 def test_source_imports_no_jax_and_no_triton_at_module_level(source):
-    """Every file of the port and ``chip_smoke.py``: no import of jax or
-    of the JAX package anywhere, and no import of triton outside a
-    function (there is none on a machine without a GPU)."""
+    """Every file of the port, ``chip_smoke.py`` and ``near_panel_ab.py``:
+    no import of jax or of the JAX package anywhere, and no import of
+    triton outside a function (there is none on a machine without a
+    GPU)."""
     path = pathlib.Path(T.__file__).parents[1] / source
     tree = ast.parse(path.read_text(), filename=source)
 
@@ -292,6 +294,7 @@ def test_source_imports_no_jax_and_no_triton_at_module_level(source):
 
 def test_port_sources_were_found():
     assert len(PORT_SOURCES) > 25 and "chip_smoke.py" in PORT_SOURCES
+    assert "near_panel_ab.py" in PORT_SOURCES
     for name in ("cartesian", "yukawa_bem", "spherical_yukawa"):
         assert f"fmm_bem_tpu_torch/kernels/{name}.py" in PORT_SOURCES
 
