@@ -62,7 +62,16 @@ block edges), and drives the port's paths at full size:
   ``eval_exterior`` (``near_panel`` on the dual store), then dual plans
   of unequal leaf pads (``otf_tile`` on the on-the-fly one); the point
   programs ``serialrun`` and ``scaling`` run in-process (``p2p_tile``
-  held on the ``serialrun`` plan's tables).
+  held on the ``serialrun`` plan's tables);
+- the LET distribution (``parallel/let.py``): the cached path's plan
+  over 1, 2 and 4 ranks and the (2, 2) layout, every rank on the card
+  (and on two cards where there are two): ``apply`` against
+  ``plan.apply`` in both BC variants, the bytes each collective brings
+  a rank against a rank's store, chained matvecs, the relaxed
+  first-kind solve at 4 ranks against the single plan's, ``near_panel``
+  on each rank's store; the f64 LET at 8,192 panels; the Stokes plan at
+  4 ranks with ``panel_contract`` on each rank's store; the point LET
+  on the million points; the ``scaling_multichip`` program in-process.
 
 Each path's kernel launches are counted from zero just before it is
 driven and read just after.  Each phase prints one JSON line; any
@@ -115,10 +124,11 @@ from fmm_bem_tpu_torch.ops import _build
 from fmm_bem_tpu_torch.ops import near_panel as npl
 from fmm_bem_tpu_torch.ops import otf_tile as otf
 from fmm_bem_tpu_torch.ops import p2p_tile as p2p
+from fmm_bem_tpu_torch.parallel.let import LetPlan
 from fmm_bem_tpu_torch.bem.integrals import near_entries_laplace
 from fmm_bem_tpu_torch.solver.api import solve_plan
 from fmm_bem_tpu_torch.solver.fmgmres import fmgmres, fmgmres_device
-from fmm_bem_tpu_torch.solver.gmres import fgmres
+from fmm_bem_tpu_torch.solver.gmres import fgmres, gmres_device
 from fmm_bem_tpu_torch.solver.preconditioners import (
     block_diagonal_from_plan,
     local_inner,
@@ -1598,10 +1608,12 @@ def path_cached(recursions):
     del oplan, store
     torch.cuda.empty_cache()
     phase_coo_replay(plan, fields, cached1, recursions)
-    return [full, full64, *near_checks], [kernel_entry(
+    let_checks, let_entries = path_let(
+        plan, n, cached1, min(LET_F64_RECURSIONS, recursions))
+    return [full, full64, *near_checks, *let_checks], [kernel_entry(
         "near_panel", "fmm_bem_tpu/ops/near_panel.py:539", full,
         main_rec["kernel_launches"],
-    ), *near_entries]
+    ), *near_entries, *let_entries]
 
 
 def path_otf(recursions):
@@ -1703,7 +1715,7 @@ def path_points(npoints, nbase):
     direct summation on a sample.  The limit is three times the error
     the same order shows on ``nbase`` points, which is its truncation
     error: the expansions are cut at the same p, only the tree is
-    deeper."""
+    deeper.  Then the point LET on its plan (``phase_let_points``)."""
     torch.cuda.empty_cache()
     base, bpts, bq = point_plan(nbase, 31)
     base_err = sample_errors(base, bpts, bq, base.apply(bq, p=5))
@@ -1752,6 +1764,7 @@ def path_points(npoints, nbase):
              "through p2p_tile once, and no other kernel")
     phase_profile(plan, q, phase="points_profile")
     phase_body_order(plan, "points", "p2p_tile", 5)
+    phase_let_points(plan, q)
     return [full, full64], kernel_entry(
         "p2p_tile", "fmm_bem_tpu/ops/p2p_tile.py:180", full,
         counts["p2p_tile"],
@@ -1940,10 +1953,14 @@ def path_stokes(recursions, chain=20, prefix="stokes"):
     phase_profile(plan, u, p=STOKES_P, phase=f"{prefix}_profile")
     phase_profile(plan, u, p=STOKES_P_MIN, phase=f"{prefix}_profile_p5")
     phase_body_order(plan, prefix, "panel_contract", STOKES_P)
-    return [full, full64], kernel_entry(
+    entry = kernel_entry(
         "panel_contract", "fmm_bem_tpu/ops/near_panel.py:626", full,
         main_rec["kernel_launches"],
-    ), host_build_s
+    )
+    if prefix != "stokes":
+        return [full, full64], [entry], host_build_s
+    let_checks, let_entries = phase_let_stokes(plan, n)
+    return [full, full64, *let_checks], [entry, *let_entries], host_build_s
 
 
 def path_stokes_both(recursions, try_larger):
@@ -3468,6 +3485,400 @@ def phase_twin_points(npoints, nsmall, nbase):
     return entries
 
 
+# ----------------------------------------------------------------------
+# the LET distribution (parallel/let.py): ranks that share the card
+# ----------------------------------------------------------------------
+#: rank layouts of ``let_cached`` (every rank on the card) and the rank
+#: count of its solve and of its kernel checks
+LET_LAYOUTS = (1, 2, 4, (2, 2))
+LET_RANKS = 4
+#: an f32 LET apply against the plan's: the same operator, its M2L sums
+#: taken in another order (class tiles where the plan takes families)
+LET_APPLY_LIMIT = 1e-5
+#: the same in f64, on a sphere of this many recursions
+LET_F64_LIMIT = 1e-12
+LET_F64_RECURSIONS = 6
+#: chained LET matvecs timed per layout
+LET_CHAIN = 10
+#: the LET first-kind solve's solution error: the cached path's limit
+LET_SOLVE_ERR_LIMIT = 5e-3
+
+
+def let_apply(lp, q, p, fields=None):
+    """One LET matvec of a BC variant (``fields``: the plan's host
+    fields of that variant; None: the LET plan's own), user order in and
+    out."""
+    fn, ops = lp.matvec_fn(p, fields)
+    return lp.from_padded(fn(ops, lp.to_padded(q)))
+
+
+def let_collectives(lp):
+    """The largest bytes a rank received in the last matvec, per
+    collective and axis."""
+    out = {}
+    for op, axis, nbytes in lp.comm.log:
+        key = f"{op} {axis if isinstance(axis, str) else ','.join(axis)}"
+        out[key] = max(out.get(key, 0), nbytes)
+    return out
+
+
+def let_store_bytes(lp, fields):
+    return [nbytes_of(s["A"]) for s, _ in lp._near_panels_local(fields)]
+
+
+def counted_let(lp, fn):
+    """Run ``fn()`` with every launch count set to 0 just before it and
+    read just after, counting the LET matvecs it runs.  Returns (what
+    ``fn`` returned, matvecs, counts)."""
+    calls = {"matvecs": 0}
+    inner = lp._matvec
+
+    def counted(*a, **k):
+        calls["matvecs"] += 1
+        return inner(*a, **k)
+
+    lp._matvec = counted
+    torch.cuda.synchronize()
+    reset_launch_counts()  # every kernel count, just before the run
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+        counts = launch_counts()  # ... and read just after it
+    finally:
+        lp._matvec = inner
+    return out, calls["matvecs"], counts
+
+
+def hold_let_launches(counts, matvecs, kernel, ranks, what):
+    """Fail unless ``kernel`` launched once per rank per matvec and no
+    other kernel launched (``kernel`` None: no kernel at all)."""
+    want = {**dict.fromkeys(WRAPPERS, 0),
+            **({kernel: ranks * matvecs} if kernel else {})}
+    if matvecs == 0 or counts != want:
+        fail(f"{what}: {matvecs} LET matvecs on {ranks} ranks launched "
+             f"{counts}, not {want}")
+
+
+def let_first_kind_solve(plan, lp, n):
+    """The first-kind relaxed solve of ``first_kind_solve`` through the
+    LET operator (``solver_ops``) and ``gmres_device``, its launches
+    counted from 0 around the solve alone; its true residual on the
+    plan's operator at p=10."""
+    ones = np.ones(n, np.float32)
+    b1 = plan.apply_flipped_bc(ones, p=10)[:, 0]
+    mv, op4p = lp.solver_ops()
+
+    def solve():
+        return timed_solve(lambda: gmres_device(
+            mv, lp.to_padded(b1), operand_for_p=op4p,
+            config=first_kind_config()))
+
+    ((x_pad, info), seconds), matvecs, counts = counted_let(lp, solve)
+    x = lp.from_padded(x_pad).cpu().numpy()
+    rec = solve_record(x, info, "let_device", seconds, n)
+    rec["residual_history"] = [float(h[1]) for h in info.history]
+    rec["true_residual"] = true_residual(plan, b1.cpu().numpy(), x)
+    rec["matvecs"], rec["launch_counts"] = matvecs, counts
+    return rec
+
+
+def phase_let_layout(plan, n, layout, single_first, devices=None):
+    """One LET plan of the cached path's plan: its host build and
+    per-rank stores, ``apply`` against ``plan.apply`` at p=10 and p=5 in
+    both BC variants, the bytes of its collectives, chained matvecs at
+    p=5 with the kernel launches counted from 0 and the device launches
+    of one matvec; at ``LET_RANKS`` ranks on one card the first-kind
+    solve and ``near_panel`` on every rank store.  Returns (record, the
+    LET plan)."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    lp = LetPlan(plan, layout, devices=devices)
+    host_build_s = time.time() - t0
+    flipped = plan._flipped_fields()
+    t0 = time.time()
+    own_bytes = let_store_bytes(lp, plan.src.fields)
+    flipped_bytes = let_store_bytes(lp, flipped)
+    torch.cuda.synchronize()
+    store_s = time.time() - t0
+    stats = lp.stats()
+    rec = {
+        "phase": "let_cached", "layout": list(layout)
+        if isinstance(layout, tuple) else layout, "ranks": lp.ndev,
+        "devices": [str(d) for d in lp.devices], "n_panels": n,
+        "host_build_s": host_build_s, "rank_stores_s": store_s,
+        "rank_store_bytes": own_bytes,
+        "rank_store_bytes_flipped": flipped_bytes,
+        "plan_store_bytes": nbytes_of(plan.near_panels()[0]["A"]),
+        "stats": stats, "limit": LET_APPLY_LIMIT,
+    }
+    q = np.random.default_rng(3).standard_normal(n).astype(np.float32)
+    diffs, collectives = {}, {}
+    for p in (10, 5):
+        for name, fields, ref in (("own", None, plan.apply),
+                                  ("flipped", flipped,
+                                   plan.apply_flipped_bc)):
+            want = ref(q, p=p)
+            got = let_apply(lp, q, p, fields)
+            diffs[f"p{p}_{name}"] = float(
+                (got - want).abs().max() / want.abs().max())
+            for k, v in let_collectives(lp).items():
+                collectives[k] = max(collectives.get(k, 0), v)
+    rec["rel_max_diff"] = diffs
+    rec["collective_bytes_received"] = collectives
+
+    # chained matvecs at p=5, every launch count from 0
+    fn, ops = lp.matvec_fn(5)
+    x = lp.to_padded(np.ones(n, np.float32))
+    for _ in range(2):
+        y = fn(ops, x)
+        x = y[:, 0] / torch.linalg.vector_norm(y)
+
+    def chain():
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        xx = x
+        t0 = time.time()
+        a.record()
+        for _ in range(LET_CHAIN):
+            yy = fn(ops, xx)
+            xx = yy[:, 0] / torch.linalg.vector_norm(yy)
+        b.record()
+        torch.cuda.synchronize()
+        return (a.elapsed_time(b) / LET_CHAIN,
+                (time.time() - t0) * 1e3 / LET_CHAIN, xx)
+
+    (ms, host_ms, xx), matvecs, counts = counted_let(lp, chain)
+    rec["matvec_ms"] = ms
+    rec["matvec_host_ms"] = host_ms
+    rec["chain"] = LET_CHAIN
+    by_name, _ = device_ops(lambda: fn(ops, x))
+    rec["device_launches_per_matvec"] = sum(v[1] for v in by_name.values())
+    rec["device_busy_us"] = sum(v[0] for v in by_name.values())
+    rec["device_idle_share"] = idle_share(by_name, ms)
+    rec["launch_counts"] = counts
+    rec["matvecs"] = matvecs
+    if not torch.isfinite(xx).all() or float(xx.abs().max()) == 0.0:
+        fail(f"chained LET matvecs at {layout} gave non-finite or zero "
+             "values")
+    hold_let_launches(counts, matvecs, "near_panel", lp.ndev,
+                      f"let_cached {layout}")
+    if lp.ndev == LET_RANKS and lp.ndcn == 1 and devices is None:
+        sol = let_first_kind_solve(plan, lp, n)
+        sol["single_plan"] = {k: single_first[k] for k in (
+            "iterations", "p_schedule", "err")}
+        rec["first_kind_relaxed"] = sol
+        hold_let_launches(sol["launch_counts"], sol["matvecs"], "near_panel",
+                          lp.ndev, "the LET first-kind solve")
+    rec["peak_device_memory_bytes"] = torch.cuda.max_memory_allocated()
+    emit(rec)
+    worst = max(diffs.values())
+    if not worst <= LET_APPLY_LIMIT:
+        fail(f"the LET apply at {layout} is {worst:.3e} off plan.apply "
+             f"(limit {LET_APPLY_LIMIT:.0e}): {diffs}")
+    panel_bytes = stats["near_panel_bytes_per_dev"]
+    if not collectives or max(collectives.values()) >= panel_bytes:
+        fail(f"a LET collective at {layout} brings a rank "
+             f"{collectives} bytes, not below its store's {panel_bytes}")
+    sol = rec.get("first_kind_relaxed")
+    if sol is not None:
+        single = sol["single_plan"]
+        k = min(len(sol["p_schedule"]), len(single["p_schedule"]))
+        if not (sol["converged"] and sol["finite_and_shaped"]
+                and abs(sol["iterations"] - single["iterations"]) <= 1
+                and sol["p_schedule"][:k] == single["p_schedule"][:k]):
+            fail(f"the LET first-kind solve {sol} is not the single "
+                 f"plan's {single}")
+        if not (sol["err"] <= LET_SOLVE_ERR_LIMIT
+                and sol["true_residual"] <= TRUE_RESIDUAL_LIMIT):
+            fail(f"the LET first-kind solve: err {sol['err']:.3e} "
+                 f"({LET_SOLVE_ERR_LIMIT:.0e}), "
+                 f"true residual {sol['true_residual']:.3e} "
+                 f"({TRUE_RESIDUAL_LIMIT:.0e})")
+    return rec, lp
+
+
+def let_rank_kernel_entries(lp, fields, check, name, replaces, path,
+                            launches):
+    """``check`` (``check_near_panel`` / ``check_panel_contract``) on
+    every rank store of ``lp``, timed; one kernels-line entry per rank
+    with its path and rank (``launches``: that rank's launches in the
+    path's counted run)."""
+    checks, entries = [], []
+    for r, (store, meta) in enumerate(lp._near_panels_local(fields)):
+        kw = {"tiled_model": True} if name == "near_panel" else {}
+        rec = check(store, meta, lp.n_ctab - 1, 1e-5, f"{path}_rank{r}",
+                    time_it=True, **kw)
+        rec["rank"] = r
+        checks.append(rec)
+        entries.append(dict(kernel_entry(name, replaces, rec, launches),
+                            path=path, rank=r))
+    return checks, entries
+
+
+def phase_let_f64(recursions):
+    """At a small sphere in f64: the LET apply at ``LET_RANKS`` ranks
+    against the f64 plan's, both BC variants, p=10 and p=5."""
+    plan, n = build_plan(recursions, "float64")
+    lp = LetPlan(plan, LET_RANKS)
+    q = np.random.default_rng(4).standard_normal(n)
+    flipped = plan._flipped_fields()
+    diffs = {}
+    for p in (10, 5):
+        for name, fields, ref in (("own", None, plan.apply),
+                                  ("flipped", flipped,
+                                   plan.apply_flipped_bc)):
+            want = ref(q, p=p)
+            diffs[f"p{p}_{name}"] = float(
+                (let_apply(lp, q, p, fields) - want).abs().max()
+                / want.abs().max())
+    rec = {"phase": "let_f64", "n_panels": n, "ranks": LET_RANKS,
+           "rel_max_diff": diffs, "limit": LET_F64_LIMIT}
+    emit(rec)
+    if not max(diffs.values()) <= LET_F64_LIMIT:
+        fail(f"the f64 LET apply is off the f64 plan's: {diffs}")
+    return rec
+
+
+def path_let(plan, n, single_first, f64_recursions):
+    """The LET phases on the cached path's plan: ``let_cached`` at each
+    of ``LET_LAYOUTS`` with every rank on the card (one LET plan at a
+    time, freed before the next), across cards where there are two,
+    ``near_panel`` on the rank stores at ``LET_RANKS`` ranks, and
+    ``let_f64``.  Returns (checks, kernels-line entries)."""
+    checks, entries = [], []
+    for layout in LET_LAYOUTS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rec, lp = phase_let_layout(plan, n, layout, single_first)
+        if layout == LET_RANKS:
+            launches = rec["launch_counts"]["near_panel"] // lp.ndev
+            more, entries = let_rank_kernel_entries(
+                lp, plan.src.fields, check_near_panel, "near_panel",
+                "fmm_bem_tpu/ops/near_panel.py:539", "let_cached",
+                launches)
+            checks.extend(more)
+        del lp
+    torch.cuda.empty_cache()
+    ncards = torch.cuda.device_count()
+    if ncards >= 2:
+        cards = [torch.device("cuda", r) for r in range(2)]
+        _, lp = phase_let_layout(plan, n, 2, single_first, devices=cards)
+        del lp
+    else:
+        emit({"phase": "let_cached_distinct_cards", "ran": False,
+              "reason": f"torch.cuda.device_count() is {ncards}: every "
+                        "rank shares the one card"})
+    torch.cuda.empty_cache()
+    phase_let_f64(f64_recursions)
+    torch.cuda.empty_cache()
+    return checks, entries
+
+
+def phase_let_stokes(plan, n):
+    """The Stokes path's plan at ``LET_RANKS`` ranks on the card: the
+    LET apply at p=8 against ``plan.apply`` (launches counted from 0:
+    ``panel_contract`` once per rank per matvec), then
+    ``panel_contract`` on every rank store.  Returns (checks,
+    kernels-line entries)."""
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    lp = LetPlan(plan, LET_RANKS)
+    host_build_s = time.time() - t0
+    t0 = time.time()
+    store_bytes = let_store_bytes(lp, plan.src.fields)
+    store_s = time.time() - t0
+    u = np.random.default_rng(6).standard_normal((n, 3)).astype(np.float32)
+    want = plan.apply(u, p=STOKES_P)
+    got, matvecs, counts = counted_let(
+        lp, lambda: let_apply(lp, u, STOKES_P))
+    rel = float((got - want).abs().max() / want.abs().max())
+    rec = {"phase": "let_stokes", "n_panels": n, "ranks": LET_RANKS,
+           "p": STOKES_P, "host_build_s": host_build_s,
+           "rank_stores_s": store_s, "rank_store_bytes": store_bytes,
+           "rel_max_diff": rel, "limit": LET_APPLY_LIMIT,
+           "collective_bytes_received": let_collectives(lp),
+           "near_panel_bytes_per_dev":
+               lp.stats()["near_panel_bytes_per_dev"],
+           "launch_counts": counts, "matvecs": matvecs}
+    emit(rec)
+    if not rel <= LET_APPLY_LIMIT:
+        fail(f"the Stokes LET apply is {rel:.3e} off plan.apply")
+    hold_let_launches(counts, matvecs, "panel_contract", lp.ndev,
+                      "let_stokes")
+    checks, entries = let_rank_kernel_entries(
+        lp, plan.src.fields, check_panel_contract, "panel_contract",
+        "fmm_bem_tpu/ops/near_panel.py:626", "let_stokes", matvecs)
+    del lp
+    torch.cuda.empty_cache()
+    return checks, entries
+
+
+def phase_let_points(plan, q):
+    """The point LET of the point path's plan at ``LET_RANKS`` ranks on
+    the card (the near field through the kernel's ``p2p_block``, no hand
+    kernel) against ``plan.apply`` at p=5."""
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    lp = LetPlan(plan, LET_RANKS)
+    host_build_s = time.time() - t0
+    want = plan.apply(q, p=5)
+    (got, seconds), matvecs, counts = counted_let(
+        lp, lambda: timed_solve(lambda: let_apply(lp, q, 5)))
+    rel = float((got - want).abs().max() / want.abs().max())
+    rel_cols = ((got - want).abs().max(dim=0).values
+                / want.abs().max(dim=0).values).tolist()
+    rec = {"phase": "let_points", "n_points": len(q), "ranks": LET_RANKS,
+           "host_build_s": host_build_s, "first_apply_s": seconds,
+           "rel_max_diff": rel, "rel_max_diff_per_column": rel_cols,
+           "limit": LET_APPLY_LIMIT,
+           "collective_bytes_received": let_collectives(lp),
+           "launch_counts": counts, "matvecs": matvecs}
+    emit(rec)
+    del lp
+    torch.cuda.empty_cache()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        fail("the point LET result is not finite values of the plan's "
+             "shape")
+    if not rel <= LET_APPLY_LIMIT:
+        fail(f"the point LET apply is {rel:.3e} off plan.apply")
+    hold_let_launches(counts, matvecs, None, LET_RANKS, "let_points")
+    return rec
+
+
+def phase_twin_scaling_multichip(mem_recursions, strong_points):
+    """The port's ``scaling_multichip`` in-process on the card with 1, 2
+    and 4 ranks: ``-mode mem`` (every collective below a rank's store)
+    and ``-mode strong``."""
+    from fmm_bem_tpu_torch.examples import scaling_multichip as ex_multi
+
+    recs = []
+    for mode, argv in (
+        ("mem", ["-mode", "mem", "-recursions", str(mem_recursions),
+                 "-devs", "1,2,4"]),
+        ("strong", ["-mode", "strong", "-N", str(strong_points),
+                    "-devs", "1,2,4"]),
+    ):
+        res, lines, counts, seconds = run_program(ex_multi, argv)
+        rec = {"phase": f"twin_scaling_multichip_{mode}", "argv": argv,
+               "seconds": seconds, "printed": lines,
+               "launch_counts": counts, "rows": res["rows"]}
+        emit(rec)
+        if [r["ndev"] for r in res["rows"]] != [1, 2, 4]:
+            fail(f"scaling_multichip -mode {mode} ran {res['rows']}")
+        for row in res["rows"]:
+            if mode == "mem" and not (
+                    row["max_collective_bytes"]
+                    < row["stats"]["near_panel_bytes_per_dev"]):
+                fail(f"scaling_multichip -mode mem: a collective of "
+                     f"{row['max_collective_bytes']} bytes at "
+                     f"{row['ndev']} ranks")
+            if mode == "strong" and not (
+                    math.isfinite(row["matvec_s"]) and row["matvec_s"] > 0):
+                fail(f"scaling_multichip -mode strong: {row}")
+        recs.append(rec)
+    return recs
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -3479,6 +3890,7 @@ def main():
     yukawa_recursions, yukawa_small, point_scale = 8, 6, 1.0
     twin_recursions = 5
     dual_targets, nsmall = 200_000, 100_000
+    multichip_recursions = 6
     if args.quick:
         recursions, otf_recursions, npoints, nbase = 6, 6, 50_000, 8192
         stokes_recursions = 5
@@ -3550,6 +3962,10 @@ def main():
     t0 = time.time()
     entries.extend(phase_twin_points(npoints, nsmall, nbase))
     emit({"phase": "twin_points_done", "path_s": time.time() - t0})
+    t0 = time.time()
+    phase_twin_scaling_multichip(multichip_recursions, nsmall)
+    emit({"phase": "twin_scaling_multichip_done",
+          "path_s": time.time() - t0})
 
     emit({"phase": "previous_times", "measured_in_this_run": False,
           "source": "PERF.md, table of TPU kernels, before the last "
