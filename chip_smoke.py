@@ -12,16 +12,20 @@ block edges), and drives the port's paths at full size:
 - the cached path: a Laplace BEM unit sphere of 131,072 panels (K=3,
   ncrit=64, leaf_pad=64, f32, max_p=10) -> ``FmmPlan`` -> 50 chained
   slot-space matvecs at p=5 -> the second-kind solve at fixed p=5 -> the
-  first-kind relaxed solve with tiers (3, 5, 10); then the same sphere
-  with ``near_mode="otf"``, its matvec and its first-kind solve held
-  against the cached ones;
+  first-kind relaxed solve with tiers (3, 5, 10) -> the bench record of
+  ``utils/bench_impl.py`` on the same plan (its solves held to these,
+  its phases at p=5 and p=10 by ``utils/roofline.py``, the p=5 ones
+  held to telescope to the matvec); then the same sphere with
+  ``near_mode="otf"``, its matvec and its first-kind solve held against
+  the cached ones;
 - path A, the on-the-fly near field: the same solves on 524,288 panels
   with ``near_mode="otf"`` (no cached near store), then the first-kind
   solve once more in f64 and the f32 right-hand sides against the f64
-  ones;
+  ones; its phases by ``utils/roofline.py``;
 - path B, the point kernel: one ``FmmPlan.apply`` of ``LaplaceKernel``
   (potential + force) on 1,000,000 points at p=5, held against direct
-  summation on a sample of 1,000 targets;
+  summation on a sample of 1,000 targets; its phases by
+  ``utils/roofline.py``;
 - the Stokes path: flow past a unit sphere of 32,768 panels = 98,304
   unknowns (``StokesBEMKernel(K=4, fine_K=19, mu=1e-3)``, ncrit=64,
   leaf_pad=64, f32, max_p=10): the right-hand side through the
@@ -133,11 +137,11 @@ from fmm_bem_tpu_torch.solver.preconditioners import (
     block_diagonal_from_plan,
     local_inner,
 )
+from fmm_bem_tpu_torch.utils import bench_impl, roofline
 
-#: H100 SXM data-sheet peaks the bounds are stated against
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
-PEAK_F64_FLOPS = 34e12
+#: the peaks every bound is stated against: the H100 SXM row of
+#: utils/roofline.py's table, (f32 FLOP/s, f64 FLOP/s, bytes/s)
+H100_PEAKS = roofline.CHIP_PEAKS["NVIDIA H100 80GB HBM3"]
 #: special-function results (rsqrt, exp) per second: 16 per SM and clock
 #: on 132 SMs at the 1.98 GHz boost clock the f32 peak is stated at
 PEAK_SFU_PER_S = 132 * 16 * 1.98e9
@@ -391,12 +395,15 @@ def otf_needed_work(plan, tgt_tab, kappa):
     return evals, flops, evals * (2 if kappa else 1), pairs_dg * KQ
 
 
+def peak_flops(dtype):
+    return H100_PEAKS[0] if dtype == torch.float32 else H100_PEAKS[1]
+
+
 def arithmetic_bound(rec, nbytes, flops, sfu, dtype):
     """bound_ms: the largest of bytes over the memory rate, flops over
     the peak rate of the type and special-function results over theirs."""
-    peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_F64_FLOPS
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_flops = flops / peak * 1e3
+    t_bytes = nbytes / H100_PEAKS[2] * 1e3
+    t_flops = flops / peak_flops(dtype) * 1e3
     t_sfu = sfu / PEAK_SFU_PER_S * 1e3
     rec["bound_ms"] = max(t_bytes, t_flops, t_sfu)
     rec["bound_by"] = "bytes" if t_bytes >= max(t_flops, t_sfu) else "operations"
@@ -791,9 +798,8 @@ def near_panel_bound(panels, meta, ql):
     nbytes = (n_real * KTr * row_bytes + n_real * meta.m0 * 4
               + rp.numel() * 4 + ql.numel() * esz + meta.nl_t * KTr * esz)
     flops = 2.0 * n_real * KTr * needed
-    peak = PEAK_F32_FLOPS if A.dtype == torch.float32 else PEAK_F64_FLOPS
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
+    t_bytes = nbytes / H100_PEAKS[2] * 1e3
+    t_ops = flops / peak_flops(A.dtype) * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "needed_bytes_of_A": n_real * KTr * row_bytes,
@@ -1497,6 +1503,78 @@ def phase_profile(plan, charges, p=5, phase="profile"):
     return rec
 
 
+def phase_faults(label, out, plan, near):
+    """What a ``roofline.phase_breakdown`` record of ``plan`` must show:
+    its phases in the order of the plan's matvec (M2P where the plan
+    has level-skewed pairs, ``near`` last), no negative time, no share
+    of a peak over 100 % that is not marked ``unreliable``."""
+    want = ["p2m", "m2m", "m2l", "l2l", "l2p"]
+    want += ["m2p"] * bool(len(plan.m2p_src)) + [near, "total"]
+    faults = []
+    if list(out) != want:
+        faults.append(f"{label}: phases {list(out)}, not {want}")
+    for nm, r in out.items():
+        if nm == "total":
+            continue
+        if r["ms"] < 0.0:
+            faults.append(f"{label}: {nm} takes {r['ms']} ms")
+        over = [k for k in ("pct_mxu", "pct_hbm") if r.get(k, 0.0) > 100.0]
+        if over and not r.get("unreliable"):
+            faults.append(f"{label}: {nm} reads {over} over 100 %")
+    if out["total"]["device"] != torch.cuda.get_device_name(plan.device):
+        faults.append(f"{label}: the record names {out['total']['device']}")
+    return faults
+
+
+def phase_bench_record(plan, build_s, main_rec):
+    """The bench record of the paper's workload (``utils/bench_impl.py``)
+    on the cached path's plan, which is built with the bench's own
+    configuration: the chained matvec, both solves, ``near_panel``
+    against its plain version, the phases at p=5 and p=10.  The
+    first-kind solve must repeat ``main_path``'s and the p=5 phases
+    must telescope to the matvec (``sum_ratio`` within 15 %)."""
+    reset_launch_counts()
+    rec = bench_impl.measure(plan, build_s, p=5)
+    counts = launch_counts()
+    phases, phases10 = rec.pop("phases"), rec.pop("phases_p10")
+    emit({"phase": "bench_record", **rec, "launch_counts": counts})
+    emit({"phase": "bench_phases_p5", **phases})
+    emit({"phase": "bench_phases_p10", **phases10})
+    fk, want = rec["solve_first_kind_relaxed"], main_rec["first_kind_relaxed"]
+    faults = phase_faults("p=5", phases, plan, "near")
+    faults += phase_faults("p=10", phases10, plan, "near")
+    if not (rec["solve_converged"] and fk["converged"]):
+        faults.append("a solve did not converge")
+    if not (rec["solution_err"] <= 5e-3 and fk["err"] <= 5e-3):
+        faults.append(f"solution errors {rec['solution_err']:.3e} / "
+                      f"{fk['err']:.3e} above 5e-3")
+    if (fk["iters"], fk["p_schedule"]) != (want["iterations"],
+                                           want["p_schedule"]):
+        faults.append(f"first kind {fk['iters']} {fk['p_schedule']}, "
+                      f"main_path {want['iterations']} {want['p_schedule']}")
+    if not (rec["near_equiv_err"] is not None
+            and rec["near_equiv_err"] <= 1e-5):
+        faults.append(f"near_equiv_err {rec['near_equiv_err']} above 1e-5")
+    if phases["total"]["suspect"]:
+        faults.append(f"the p=5 phases do not telescope to the matvec: "
+                      f"sum_ratio {phases['total']['sum_ratio']}")
+    if counts["near_panel"] == 0:
+        faults.append("the record did not go through near_panel")
+    if faults:
+        fail("bench_record: " + "; ".join(faults))
+
+
+def phase_breakdown_record(phase, plan, near):
+    """``roofline.phase_breakdown`` once on a path's plan at p=5 (chain
+    16, 2 repeats), so that every branch of the phase list runs on the
+    card; ``suspect`` and ``sum_ratio`` are printed, not held."""
+    out = roofline.phase_breakdown(plan, 5, chain=16, repeats=2)
+    emit({"phase": phase, **out})
+    faults = phase_faults(phase, out, plan, near)
+    if faults:
+        fail("; ".join(faults))
+
+
 def emit_plan_build(phase, plan, host_build_s, **extra):
     """The plan's sizes; a dual plan's per tree as [sources, targets]."""
     sides = (plan.src, plan.tgt) if plan.dual else (plan.src,)
@@ -1551,6 +1629,7 @@ def path_cached(recursions):
     del panels64
     torch.cuda.empty_cache()
     main_rec, x1, _, _ = phase_main_path(plan, n)
+    phase_bench_record(plan, host_build_s, main_rec)
     phase_profile(plan, np.ones(n, np.float32))
     phase_cached_solvers(plan, fields, n, main_rec["first_kind_relaxed"])
     near_entries = []
@@ -1649,6 +1728,7 @@ def path_otf(recursions):
         plan, n, chain=20, phase="otf_path", kernel="otf_tile",
         err1_limit=OTF_FIRST_KIND_ERR_LIMIT, baseline_p=10)
     phase_profile(plan, np.ones(n, np.float32), phase="otf_profile")
+    phase_breakdown_record("otf_phases", plan, "near")
     phase_body_order(plan, "otf", "otf_tile", 5)
     del plan, store, ot, ql
     phase_otf_f64(recursions, n, main_rec, b1, b2)
@@ -1763,6 +1843,7 @@ def path_points(npoints, nbase):
         fail(f"one apply launched {counts}: the point path did not go "
              "through p2p_tile once, and no other kernel")
     phase_profile(plan, q, phase="points_profile")
+    phase_breakdown_record("points_phases", plan, "p2p")
     phase_body_order(plan, "points", "p2p_tile", 5)
     phase_let_points(plan, q)
     return [full, full64], kernel_entry(

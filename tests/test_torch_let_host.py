@@ -156,7 +156,8 @@ def refused_plan(case):
                          T.FMMConfig(**cfg), target_fields=tgt,
                          device="cpu")
     extra = {"coo": dict(near_panel=False), "otf": dict(near_mode="otf"),
-             "block_diagonal": dict(block_diagonal=True)}[case]
+             "block_diagonal": dict(block_diagonal=True),
+             "local_evaluation": dict(local_evaluation=True)}[case]
     return T.FmmPlan(TBem(K=3), fields, T.FMMConfig(**cfg, **extra),
                      device="cpu")
 
@@ -166,6 +167,7 @@ def refused_plan(case):
     ("coo", NotImplementedError, "COO replay"),
     ("otf", NotImplementedError, "cached panel stores and point P2P"),
     ("block_diagonal", NotImplementedError, "near-field-only"),
+    ("local_evaluation", NotImplementedError, "near-field-only"),
 ])
 def test_refused_plans(case, error, words):
     plan = refused_plan(case)
@@ -208,6 +210,29 @@ def test_the_jax_let_is_off_its_own_otf_plan():
                    T.FMMConfig(ncrit=32, dtype="float64", max_p=8,
                                near_mode="otf"), device="cpu")
     with pytest.raises(NotImplementedError, match="near_mode='otf'"):
+        LetPlan(tp, 2)
+
+
+def test_the_jax_let_is_off_its_own_near_only_plan():
+    """Why the port refuses a near-field-only plan: the JAX ``LetPlan``'s
+    local matvec has no near-only branch (``_local_matvec``,
+    fmm_bem_tpu/parallel/let.py:1118), unlike the plan's own
+    (fmm_bem_tpu/executor/plan.py:2003), so on a ``local_evaluation``
+    plan it returns the full operator, not the near-only one."""
+    fields = make_panels(unit_sphere(4), K=3)
+    cfg = dict(ncrit=32, dtype="float64", max_p=5)
+    near = J.FmmPlan(JBem(K=3), fields,
+                     J.FMMConfig(local_evaluation=True, **cfg))
+    full = J.FmmPlan(JBem(K=3), fields, J.FMMConfig(**cfg))
+    q = np.random.default_rng(5).standard_normal(len(fields["xyz"]))
+    want = np.asarray(near.apply(q, p=5))
+    got = JLet(near, 2).apply(q, p=5)
+    assert np.abs(got - want).max() > 0.1 * np.abs(want).max()
+    np.testing.assert_allclose(got, np.asarray(full.apply(q, p=5)),
+                               rtol=0, atol=1e-12 * np.abs(got).max())
+    tp = T.FmmPlan(TBem(K=3), fields,
+                   T.FMMConfig(local_evaluation=True, **cfg), device="cpu")
+    with pytest.raises(NotImplementedError, match="near-field-only"):
         LetPlan(tp, 2)
 
 
