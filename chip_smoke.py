@@ -10,7 +10,8 @@ seeded ragged stores that meet every way a target leaf can fall on the
 block edges), and drives the port's paths at full size:
 
 - the cached path: a Laplace BEM unit sphere of 131,072 panels (K=3,
-  ncrit=64, leaf_pad=64, f32, max_p=10) -> ``FmmPlan`` -> 50 chained
+  ncrit=64, leaf_pad=64, f32, max_p=10) -> ``FmmPlan`` -> ``m2p_tile`` on
+  its level-skewed pairs at p = 3, 5, 10, timed -> 50 chained
   slot-space matvecs at p=5 -> the second-kind solve at fixed p=5 -> the
   first-kind relaxed solve with tiers (3, 5, 10) -> the bench record of
   ``utils/bench_impl.py`` on the same plan (its solves held to these);
@@ -116,6 +117,7 @@ from fmm_bem_tpu_torch.kernels.cartesian import (
     LaplaceCartesianKernel,
     YukawaKernel,
 )
+from fmm_bem_tpu_torch.kernels import harmonics as hm
 from fmm_bem_tpu_torch.kernels.laplace import LaplaceKernel
 from fmm_bem_tpu_torch.kernels.laplace_bem import LaplaceBEMKernel
 from fmm_bem_tpu_torch.kernels.spherical_yukawa import YukawaSphericalKernel
@@ -123,6 +125,7 @@ from fmm_bem_tpu_torch.kernels.stokes_bem import StokesBEMKernel
 from fmm_bem_tpu_torch.kernels.unit import UnitKernel
 from fmm_bem_tpu_torch.kernels.yukawa_bem import YukawaBEMKernel
 from fmm_bem_tpu_torch.ops import _build
+from fmm_bem_tpu_torch.ops import m2p_tile as m2p
 from fmm_bem_tpu_torch.ops import near_panel as npl
 from fmm_bem_tpu_torch.ops import otf_tile as otf
 from fmm_bem_tpu_torch.ops import p2p_tile as p2p
@@ -155,10 +158,25 @@ PEAK_SFU_PER_S = 132 * 16 * 1.98e9
 #: multiply-adds (6) = 18, + 1 rsqrt.
 OTF_FLOPS = {False: (10, 18), True: (13, 23)}  # kappa > 0: (G, dG)
 P2P_FLOPS = 18
+
+
+def m2p_flops(p):
+    """Arithmetic of one M2P evaluation (target slot, pair) at order p:
+    the scaled offset, 1/rho^2, its root and the pair's sum (15); a step
+    to each order m > 0 (9); per term the contraction with the selected
+    component (5) and, off the diagonal, the recurrence's two components
+    (9)."""
+    T = p * (p + 1) // 2
+    return 15 + 9 * (p - 1) + 5 * T + 9 * (T - p)
+
+
 #: the point Laplace kernel's self-exclusion threshold on r^2
 P2P_EPS2 = LaplaceKernel.eps2
-#: the four kernels; their wrappers carry the launch counts
+#: the package's hand-written kernels; their wrappers carry the launch
+#: counts (m2p_tile, which ports no TPU kernel, runs beside the near
+#: field's kernel: ``m2p_per_matvec``)
 WRAPPERS = {
+    "m2p_tile": m2p.m2p_tiles,
     "near_panel": npl.panel_matvec_fused,
     "otf_tile": otf.otf_leaf_tiles,
     "p2p_tile": p2p.p2p_leaf_tiles,
@@ -337,6 +355,21 @@ def reset_launch_counts():
 
 def launch_counts():
     return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def m2p_per_matvec(plan):
+    """m2p_tile's launches in one matvec of ``plan``: 1 where its kernel
+    carries the ``m2p_tile`` marker and the plan has a far field with
+    level-skewed pairs, else 0."""
+    return int(bool(getattr(plan.kernel, "m2p_tile", False))
+               and not plan.near_only and len(plan.m2p_src) > 0)
+
+
+def matvec_counts(plan, matvecs=1, **launched):
+    """The launch counts of ``matvecs`` matvecs of ``plan`` that launch
+    ``launched`` besides m2p_tile's own, and no other kernel."""
+    return {**dict.fromkeys(WRAPPERS, 0),
+            "m2p_tile": matvecs * m2p_per_matvec(plan), **launched}
 
 
 def build_plan(recursions, dtype, ncrit=64, leaf_pad=64, near_mode="cached",
@@ -603,6 +636,95 @@ def check_p2p_tile(plan, tb, tol, label, time_it=False):
             lambda: p2p.p2p_leaf_tiles_reference(*args), 2, 1, batches=1)
         rec["library_ms"] = None  # no single PyTorch call computes this
     return rec
+
+
+def m2p_skewed_plan(dtype):
+    """A unit sphere of 512 panels beside one of 2,048 fifty times
+    smaller (Laplace BEM, ncrit 8, max_p 10): its adaptive tree gives
+    level-skewed pairs, which go to M2P, and leaves with padded slots."""
+    small = unit_sphere(4) * 0.02 + np.array([1.3, 0.0, 0.0])
+    fields = make_panels(np.concatenate([unit_sphere(3), small]), K=3)
+    return fbt.FmmPlan(LaplaceBEMKernel(K=3), fields,
+                       fbt.FMMConfig(ncrit=8, dtype=dtype, max_p=10),
+                       device=DEV)
+
+
+def check_m2p_tile(plan, tdt, tol, label, orders, time_it=False):
+    """The m2p_tile kernel against its plain version on the card, on the
+    plan's pair tables in ``tdt`` (the plan's own dtype or f64), seeded
+    multipole rows and both BC variants, at each order of ``orders``:
+    relative to the largest value (f32 differs by the recurrence's
+    ratios taken as products and by the order of the pair sums), padded
+    slots exactly 0, a second launch the same bits.  With ``time_it``
+    each order's kernel is timed beside its bound and the plain
+    version's time (BC variant 0).  Returns the records."""
+    recs = []
+    nl, K = len(plan.tgt.leaf_ids), plan.tgt.leaf_pad
+    for p in orders:
+        d = plan.device_data(p)
+        tiles = {k: (v.to(tdt) if v.is_floating_point() else v)
+                 for k, v in d["m2p_tiles"].items()}
+        gen = torch.Generator(device=DEV).manual_seed(13 + p)
+        M = torch.randn((plan.src.tree.num_boxes, 2 * hm.real_width(p)),
+                        generator=gen, dtype=tdt, device=DEV)
+        pad = ~d["t_slot_mask"].reshape(nl, K)
+        for bc_name, fh in (("bc0", None), ("bc1", plan._flipped_fields())):
+            bc = plan.variant_aux(p, src_host=fh, tgt_host=fh)["m2p_bc"]
+            args = (M, d["s_box_center"].to(tdt), tiles["leaves"],
+                    tiles["row_ptr"], tiles["src"], tiles["isig"],
+                    tiles["cnt"], tiles["xyz"], bc.to(tdt))
+            zeros = torch.zeros((nl, K), dtype=tdt, device=DEV)
+            before = m2p.m2p_tiles.launches
+            got = m2p.m2p_tiles(*args, zeros.clone(), p)
+            again = m2p.m2p_tiles(*args, zeros.clone(), p)
+            launched = m2p.m2p_tiles.launches - before
+            torch.cuda.synchronize()
+            want = m2p.m2p_tiles_reference(*args, zeros.clone(), p)
+            rel = float((got - want).abs().max() / want.abs().max())
+            zeros_exact = bool((got[pad] == 0).all())
+            bit_equal = torch.equal(got, again)
+            rec = {
+                "kernel": "m2p_tile", "case": f"{label}_p{p}_{bc_name}",
+                "dtype": str(tdt).replace("torch.", ""), "p": p,
+                "pairs": int(tiles["src"].shape[0]),
+                "target_leaves": int(tiles["leaves"].shape[0]),
+                "max_abs_err": float((got - want).abs().max()),
+                "rel_err": rel, "tol": tol,
+                "all_finite": bool(torch.isfinite(got).all()),
+                "padded_exact_zero": zeros_exact,
+                "repeat_bit_equal": bit_equal, "launches": launched,
+            }
+            if not (rel <= tol and zeros_exact and bit_equal
+                    and rec["all_finite"] and launched == 2):
+                emit(rec)
+                fail(f"m2p_tile[{rec['case']}] disagrees with its plain "
+                     f"version: rel {rel:.3e} > {tol:.1e}, exact zeros "
+                     f"{zeros_exact}, repeat bit-equal {bit_equal}, "
+                     f"launches {launched}")
+            if time_it and bc_name == "bc0":
+                cnt = tiles["cnt"].long()
+                per_leaf = tiles["row_ptr"][1:] - tiles["row_ptr"][:-1]
+                evals = int((cnt * per_leaf.long()).sum())
+                rec["evaluations"] = evals
+                rec["flops_per_evaluation"] = m2p_flops(p)
+                # each source box's M row once, the tables, the slots'
+                # coordinates and flags, and the result tiles read and
+                # written
+                rows = int(torch.unique(tiles["src"]).numel())
+                nbytes = (rows * 2 * hm.real_width(p) * M.element_size()
+                          + nbytes_of(*args[2:]) + 2 * nbytes_of(
+                              got[tiles["leaves"].long()]))
+                arithmetic_bound(rec, nbytes, evals * m2p_flops(p), 0, tdt)
+                out = zeros.clone()
+                rec["ms"] = gpu_ms(lambda: m2p.m2p_tiles(*args, out, p), 20)
+                rec["graph_ms"] = graph_ms(
+                    lambda: m2p.m2p_tiles(*args, out, p))
+                rec["plain_ms"] = gpu_ms(
+                    lambda: m2p.m2p_tiles_reference(*args, out, p), 2, 1,
+                    batches=1)
+                rec["library_ms"] = None  # no single PyTorch call does this
+            recs.append(rec)
+    return recs
 
 
 def p2p_edge_tables(tb, K, dtype):
@@ -1240,8 +1362,8 @@ def phase_kernels_small():
         lplan.apply(np.ones(ln, np.float32), p=5)
         torch.cuda.synchronize()
         local_otf["launch_counts"] = launch_counts()
-        if local_otf["launch_counts"] != {**dict.fromkeys(WRAPPERS, 0),
-                                          "otf_tile": 1}:
+        if local_otf["launch_counts"] != matvec_counts(lplan,
+                                                       otf_tile=1):
             fail(f"a local-evaluation OTF matvec launched "
                  f"{local_otf['launch_counts']}")
         del lplan, lot, lql
@@ -1261,6 +1383,11 @@ def phase_kernels_small():
         ot = oplan.near_panels()[0]["otf_tiles"]
         oql, _ = leaf_charges(oplan, tdt)
         checks.extend(check_bad_tables(ot, tb, oql, dtype, tol))
+        # the M2P kernel on a plan with level-skewed pairs
+        mplan = m2p_skewed_plan(dtype)
+        checks.extend(check_m2p_tile(mplan, tdt, tol, "two_spheres",
+                                     (1, 3, 5, 10)))
+        del mplan
     if sum(c["case"].startswith("bad_") for c in checks) != 2 * 9:
         fail("kernels_small lacks a bad-table case")
     return build_s, checks, local_otf
@@ -1303,9 +1430,10 @@ def first_kind_solve(plan, n, p_fixed=None):
 def phase_main_path(plan, n, p=5, chain=50, phase="main_path",
                     kernel="near_panel", err1_limit=5e-3, baseline_p=None):
     """Chained matvecs and both solves of a BEM plan, with the launches
-    of the path's near-field kernel held against the number of matvecs
-    the plan ran.  ``baseline_p`` adds the first-kind solve at that fixed
-    order beside the relaxed one.  Returns (record, first-kind solution,
+    of the path's near-field kernel, and of m2p_tile where the plan's
+    matvecs run it (``m2p_per_matvec``), held against the number of
+    matvecs the plan ran.  ``baseline_p`` adds the first-kind solve at
+    that fixed order beside the relaxed one.  Returns (record, first-kind solution,
     first-kind RHS, second-kind RHS)."""
     calls = {"matvecs": 0}
     inner = plan._matvec_slots
@@ -1382,11 +1510,12 @@ def phase_main_path(plan, n, p=5, chain=50, phase="main_path",
     if err2 > 5e-3 or err1 > err1_limit:
         fail(f"solution error above its limit: second kind {err2:.3e} "
              f"(5e-3), first kind {err1:.3e} ({err1_limit:.0e})")
-    others = sum(v for k, v in counts.items() if k != kernel)
-    if launches == 0 or launches != calls["matvecs"] or others:
+    want = matvec_counts(plan, calls["matvecs"], **{kernel: calls["matvecs"]})
+    if launches == 0 or counts != want:
         fail(f"{kernel} launched {launches} times in {calls['matvecs']} "
-             f"matvecs (all counts: {counts}): the path did not go "
-             "through its kernel, and no other, once per matvec")
+             f"matvecs (all counts: {counts}, expected {want}): the path "
+             "did not go through its kernels, and no other, once per "
+             "matvec")
     return rec, x1, b1, b2
 
 
@@ -1451,6 +1580,9 @@ def phase_profile(plan, charges, p=5, phase="profile"):
     M = plan._phase_m2m(d, M0.clone())
     L0 = plan._phase_m2l(d, M, p)
     L = plan._phase_l2l(d, L0.clone())
+    res0 = torch.zeros((nl * K, plan.kernel.result_dim), dtype=M.dtype,
+                       device=DEV)
+
     def t(fn):  # one batch of 10: most phases are host-bound
         return gpu_ms(fn, 10, batches=1)
 
@@ -1460,7 +1592,7 @@ def phase_profile(plan, charges, p=5, phase="profile"):
         "m2l": t(lambda: plan._phase_m2l(d, M, p)),
         "l2l": t(lambda: plan._phase_l2l(d, L0.clone())),
         "l2p": t(lambda: plan._l2p_slots(d, aux, L, p)),
-        "m2p": t(lambda: plan._m2p_pass(d, tf, M, p, nl, K))
+        "m2p": t(lambda: plan._m2p_pass(d, aux, tf, M, p, nl, K, res0))
         if len(plan.m2p_src) else 0.0,
         "near": t(lambda: plan._near_pass_slots(aux, q_t))
         if "panels" in aux
@@ -1478,7 +1610,7 @@ def phase_profile(plan, charges, p=5, phase="profile"):
         lambda: plan._l2p_slots(d, aux, L, p))[0]}
     if len(plan.m2p_src):
         phase_launches["m2p"] = device_launches(
-            lambda: plan._m2p_pass(d, tf, M, p, nl, K))[0]
+            lambda: plan._m2p_pass(d, aux, tf, M, p, nl, K, res0))[0]
     busy_us = sum(v[0] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     rec = {
@@ -1584,7 +1716,21 @@ def path_cached(recursions):
     full64 = check_near_panel(panels64, meta, nl, 1e-12, "main_path")
     del panels64
     torch.cuda.empty_cache()
+    # the M2P kernel on the plan's level-skewed pairs (the full sphere
+    # has 1,320; a --quick one may have none), timed at the relaxation's
+    # orders; the main path holds its launches to the matvecs
+    m2p_recs, m2p_entries = [], []
+    if len(plan.m2p_src):
+        m2p_recs = check_m2p_tile(plan, torch.float32, 1e-5, "main_path",
+                                  (3, 5, 10), time_it=True)
+        m2p_recs += check_m2p_tile(plan, torch.float64, 1e-12, "main_path",
+                                   (3, 5, 10))
     main_rec, x1, _, _ = phase_main_path(plan, n)
+    if m2p_recs:
+        m2p_entries = [kernel_entry(
+            "m2p_tile", None,
+            next(r for r in m2p_recs if r["p"] == 10 and "ms" in r),
+            main_rec["launch_counts"]["m2p_tile"])]
     phase_bench_record(plan, host_build_s, main_rec)
     phase_profile(plan, np.ones(n, np.float32))
     phase_cached_solvers(plan, fields, n, main_rec["first_kind_relaxed"])
@@ -1645,10 +1791,10 @@ def path_cached(recursions):
     phase_coo_replay(plan, fields, cached1, recursions)
     let_checks, let_entries = path_let(
         plan, n, cached1, min(LET_F64_RECURSIONS, recursions))
-    return [full, full64, *near_checks, *let_checks], [kernel_entry(
-        "near_panel", "fmm_bem_tpu/ops/near_panel.py:539", full,
-        main_rec["kernel_launches"],
-    ), *near_entries, *let_entries]
+    return [full, full64, *m2p_recs, *near_checks, *let_checks], [
+        kernel_entry("near_panel", "fmm_bem_tpu/ops/near_panel.py:539",
+                     full, main_rec["kernel_launches"]),
+        *m2p_entries, *near_entries, *let_entries]
 
 
 def path_otf(recursions):
@@ -1863,23 +2009,28 @@ def drive_slot_path(plan, kernel, orders, x0, chain, solves):
         "chain": chain, "launches_per_matvec": per_matvec,
         "matvecs": calls["matvecs"], "kernel": kernel,
         "kernel_launches": counts[kernel], "launch_counts": counts,
+        "m2p_launches_expected": calls["matvecs"] * m2p_per_matvec(plan),
         "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
     }
 
 
 def hold_launches(rec, path):
-    """Fail unless the path's kernel launched once per matvec the plan
-    ran, and no other kernel launched."""
+    """Fail unless the path's kernel launched once per matvec the plans
+    ran, m2p_tile as often as their matvecs run it
+    (``m2p_launches_expected``), and no other kernel launched."""
     kernel, counts = rec["kernel"], rec["launch_counts"]
-    others = sum(v for k, v in counts.items() if k != kernel)
+    others = sum(v for k, v in counts.items()
+                 if k not in (kernel, "m2p_tile"))
     own = rec.get("kernel_launches_per_plan", [rec["matvecs"]])
     per_plan = rec.get("matvecs_per_plan", [rec["matvecs"]])
     if (counts[kernel] == 0 or counts[kernel] != rec["matvecs"] or others
-            or own != per_plan):
+            or own != per_plan
+            or counts["m2p_tile"] != rec["m2p_launches_expected"]):
         fail(f"{kernel} launched {counts[kernel]} times in {rec['matvecs']} "
              f"matvecs ({own} in the matvecs {per_plan} of each plan; all "
-             f"counts: {counts}): the {path} path did not go through its "
-             "kernel, and no other, once per matvec")
+             f"counts: {counts}, m2p_tile expected "
+             f"{rec['m2p_launches_expected']}): the {path} path did not go "
+             "through its kernels, and no other, once per matvec")
 
 
 def stokes_solve(plan, fields, n, p_fixed=None):
@@ -2328,7 +2479,9 @@ def counted_run(plans, kernel, fn, what):
     rec = {"seconds": seconds, "matvecs": sum(calls),
            "matvecs_per_plan": calls, "kernel": kernel,
            "kernel_launches": counts[kernel],
-           "kernel_launches_per_plan": own, "launch_counts": counts}
+           "kernel_launches_per_plan": own, "launch_counts": counts,
+           "m2p_launches_expected": sum(
+               c * m2p_per_matvec(plan) for c, plan in zip(calls, plans))}
     hold_launches(rec, what)
     return out, rec
 
@@ -2859,8 +3012,13 @@ def phase_twins(laplace_recursions, small_recursions):
                "launch_counts": counts,
                "printed": [ln for ln in lines if "error" in ln
                            or "solve :" in ln or "analytic" in ln]}
-        others = sum(v for k, v in counts.items() if k != kernel)
-        if counts[kernel] == 0 or others:
+        others = sum(v for k, v in counts.items()
+                     if k not in (kernel, "m2p_tile"))
+        # m2p_tile runs in the plan's full matvecs, each of which also
+        # runs the near-field kernel
+        m2p_ok = (0 < counts["m2p_tile"] <= counts[kernel]
+                  if m2p_per_matvec(plan) else counts["m2p_tile"] == 0)
+        if counts[kernel] == 0 or others or not m2p_ok:
             emit(rec)
             fail(f"the {name} program launched {counts}")
         rec["limits"] = hold_twin(name, res, n, int(argv[1]))
@@ -2959,9 +3117,10 @@ def phase_body_order(plan, label, kernel, p, seed=21):
     if not rel <= BODY_ORDER_LIMIT:
         fail(f"body order on the {label} plan differs from slot order by "
              f"{rel:.3e}")
-    if counts != {**no_kernel_counts(), kernel: 1}:
+    if counts != matvec_counts(plan, **{kernel: 1}):
         fail(f"body order on the {label} plan launched {counts}: not "
-             f"{kernel} once and no other kernel")
+             f"{kernel} once, m2p_tile as its matvec runs it, and no "
+             "other kernel")
     return rec
 
 
@@ -3220,7 +3379,7 @@ def path_dual_bem_exterior(recursions, ntargets):
         fail("the dual exterior result is not finite values of shape [n, 1]")
     if not err <= DUAL_EXTERIOR_LIMIT:
         fail(f"the dual exterior potential is off eval_exterior by {err:.3e}")
-    if counts != {**no_kernel_counts(), "near_panel": 1}:
+    if counts != matvec_counts(plan, near_panel=1):
         fail(f"the dual exterior apply launched {counts}")
     entries = [dict(kernel_entry(
         "near_panel", "fmm_bem_tpu/ops/near_panel.py:539", near,
@@ -3273,12 +3432,36 @@ def path_dual_bem_exterior(recursions, ntargets):
     if not rel <= DUAL_OTF_LIMIT:
         fail(f"the on-the-fly dual plan differs from the cached one by "
              f"{rel:.3e}")
-    if o_counts != {**no_kernel_counts(), "otf_tile": 1}:
+    if o_counts != matvec_counts(oplan, otf_tile=1):
         fail(f"the on-the-fly dual apply launched {o_counts}")
     entries.append(dict(kernel_entry(
         "otf_tile", "fmm_bem_tpu/ops/otf_tile.py:80", otf_rec,
         o_counts["otf_tile"]), path="dual_bem_exterior_otf"))
     return [near, otf_rec, near2], entries
+
+
+def count_matvecs(plan, fn):
+    """Run ``fn()``, counting the matvecs ``plan`` runs in either layout
+    (``_matvec_slots``, ``_matvec``).  Returns (what ``fn`` returned,
+    matvecs)."""
+    calls = {"matvecs": 0}
+    inners = {k: getattr(plan, k) for k in ("_matvec_slots", "_matvec")}
+
+    def counted(inner):
+        def run(*a, **kw):
+            calls["matvecs"] += 1
+            return inner(*a, **kw)
+        return run
+
+    for k, inner in inners.items():
+        setattr(plan, k, counted(inner))
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        for k, inner in inners.items():
+            setattr(plan, k, inner)
+    return out, calls["matvecs"]
 
 
 def coo_first_kind(plan, n):
@@ -3354,11 +3537,12 @@ def phase_coo_replay(cached, fields, cached_solve, recursions):
                           + plan.near_cols.nbytes),
     })
     reset_launch_counts()
-    got = coo_first_kind(plan, n)
+    got, matvecs = count_matvecs(plan, lambda: coo_first_kind(plan, n))
     counts = launch_counts()
+    want_counts = matvec_counts(plan, matvecs)
     ones = np.ones(n, np.float32)
     rec.update({"first_kind_coo": got, "first_kind_cached": want,
-                "launch_counts": counts,
+                "matvecs": matvecs, "launch_counts": counts,
                 "matvec_ms_p10": gpu_ms(lambda: plan.apply(ones, p=10), 3, 1,
                                         batches=1)})
     del plan
@@ -3386,9 +3570,9 @@ def phase_coo_replay(cached, fields, cached_solve, recursions):
             and got["err"] <= 5e-3):
         fail(f"the COO solve: true residual {got['true_residual']:.3e}, "
              f"error {got['err']:.3e}")
-    if counts != no_kernel_counts():
-        fail(f"the COO solve launched {counts}: the replay runs no hand "
-             "kernel")
+    if matvecs == 0 or counts != want_counts:
+        fail(f"the COO solve launched {counts} in {matvecs} matvecs: the "
+             "replay runs no hand kernel, m2p_tile runs once a matvec")
     if not stokes_rel <= STOKES_COO_LIMIT:
         fail(f"the Stokes COO plan differs from its panel plan by "
              f"{stokes_rel:.3e}")
@@ -3941,7 +4125,7 @@ def main():
         "phase": "kernels_small", "build_s": build_s,
         "nvcc_report": {
             name: _build.build_logs.get(name, "").strip().splitlines()[-12:]
-            for name in sorted(WRAPPERS)
+            for name in sorted(WRAPPERS) + ["m2p_tile"]
         },
         "checks": checks,
     })

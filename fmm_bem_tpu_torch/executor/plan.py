@@ -14,7 +14,9 @@ ops on the plan's device:
           class) + residual pair tiles, reduced by bucketed gather-sums
     L2L   octant-class matmuls per level, top-down
     L2P   slot-ordered linear table contracted with the leaf locals
-    M2P   treecode far field, and fallback for level-skewed pairs
+    M2P   treecode far field, and fallback for level-skewed pairs (for
+          the Laplace BEM kernel one launch over every pair,
+          ops/m2p_tile.py)
     near  BEM kernels: the cached leaf-panel store (ops/near_panel.py:
           the fused kernel for scalar entries, the two-stage route
           through the chunk-contraction kernel for the 3x3 blocks of
@@ -23,8 +25,8 @@ ops on the plan's device:
           small cached store of near-singular correction deltas; point
           kernels: the direct leaf-pair P2P (ops/p2p_tile.py for the
           Laplace tile math, the kernel's own ``p2p_block`` otherwise).
-          Each of the four hand-written CUDA kernels runs on the GPU
-          and its plain version on the CPU.
+          Each hand-written CUDA kernel runs on the GPU and its plain
+          version on the CPU.
 
 The matvec runs in one of two layouts.  In the SLOT layout charges
 and results live in padded leaf tiles end to end (``_matvec_slots``,
@@ -70,7 +72,10 @@ import numpy as np
 import torch
 
 from fmm_bem_tpu_torch.config import Evaluator, FMMConfig
+from fmm_bem_tpu_torch.ops import _build
 from fmm_bem_tpu_torch.ops.bucket_sum import bucket_sum_apply, build_bucket_sum
+from fmm_bem_tpu_torch.ops.m2p_tile import m2p_tiles
+from fmm_bem_tpu_torch.ops.m2p_tile import pair_tables as m2p_pair_tables
 from fmm_bem_tpu_torch.ops.near_panel import (
     build_near_panels,
     build_near_panels_on_device,
@@ -363,6 +368,31 @@ def _check_supported(config):
         )
 
 
+def cuda_kernels(kernel, config, dual):
+    """The hand-written CUDA kernels a plan's matvec loads, as its
+    kernel and configuration choose them, known before the plan's trees
+    exist.  A plan that turns out to have no pairs of a kind never
+    launches that kernel; its build was then started for nothing."""
+    names = []
+    if (getattr(kernel, "m2p_tile", False)
+            and not (config.local_evaluation or config.block_diagonal)):
+        names.append("m2p_tile")
+    if not getattr(kernel, "near_sparse", False):
+        if getattr(kernel, "p2p_tile", False) and not dual:
+            names.append("p2p_tile")
+        return names
+    if not config.near_panel:
+        return names  # the COO replay
+    rdim = getattr(kernel, "result_dim", 1)
+    cdim = getattr(kernel, "charge_dim", 1)
+    if (config.near_mode == "otf" and getattr(kernel, "otf_tile", False)
+            and rdim == cdim == 1):
+        names.append("otf_tile")
+    else:
+        names.append("near_panel" if rdim * cdim == 1 else "panel_contract")
+    return names
+
+
 class FmmPlan:
     """FMM matvec plan (single or dual tree) for a BEM panel
     kernel (cached or on-the-fly near field) or a point kernel (direct
@@ -403,6 +433,9 @@ class FmmPlan:
         self.dtype = torch_dtype(cfg.dtype)
         _check_supported(cfg)
         check_kernel(kernel, cfg)
+        if self.device.type == "cuda":
+            # a fresh checkout compiles the kernels beside the host build
+            _build.start(cuda_kernels(kernel, cfg, target_fields is not None))
         scale_inv = getattr(kernel, "scale_invariant", True)
 
         src_xyz = np.asarray(fields["xyz"], dtype=np.float64)
@@ -637,6 +670,16 @@ class FmmPlan:
         self.m2p_tgt_slot = self.tgt.box_to_slot[mt].astype(np.int32)
         self.m2p_inv_sigma = (
             1.0 / st.box_radius[ms] if len(ms) else np.zeros(0)
+        )
+        # a kernel with the M2P tile math (ops/m2p_tile.py) walks the
+        # pairs by target leaf
+        self._m2p_rows = (
+            m2p_pair_tables(
+                ms, self.m2p_tgt_slot, self.m2p_inv_sigma,
+                self.tgt.leaf_body_idx, self.tgt.leaf_body_mask,
+                self.tgt.tree.points,
+            )
+            if getattr(kern, "m2p_tile", False) and len(ms) else None
         )
 
     @staticmethod
@@ -1190,6 +1233,14 @@ class FmmPlan:
     def _index(self, a):
         return self._tensor(np.asarray(a, np.int64), torch.int64)
 
+    def _m2p_device(self, rows):
+        """The pair tables of ``ops/m2p_tile.py::pair_tables`` on the
+        plan's device: int32 tables, floats in the plan's dtype."""
+        return {
+            k: self._tensor(v, torch.int32 if v.dtype.kind in "iu" else None)
+            for k, v in rows.items()
+        }
+
     def near_panels(self, tgt_fields_host=None):
         """Leaf-panel form of the near field for one BC variant (see
         ops/near_panel.py) — device tensors, cached per variant.
@@ -1428,6 +1479,8 @@ class FmmPlan:
                 "s_box_center": self._tensor(self.src.tree.box_center),
             }
         )
+        if self._m2p_rows is not None:
+            d["m2p_tiles"] = self._m2p_device(self._m2p_rows)
         if self._p2p_rows is not None:
             src_sorted, row_ptr = self._p2p_rows
             d["p2p_src_sorted"] = self._tensor(src_sorted, torch.int32)
@@ -1547,6 +1600,10 @@ class FmmPlan:
             self._aux_cache[key] = aux
             return aux
 
+        if self._m2p_rows is not None:
+            # the BC flags of the M2P target slots, [nb, K]
+            aux["m2p_bc"] = self._tensor(np.asarray(tfh["bc"])[
+                self.tgt.leaf_body_idx[self._m2p_rows["leaves"]]])
         pmax = self.config.max_p
         W = kern.width(p)
         full_key = (bc_s.tobytes(), bc_t.tobytes(), pmax)
@@ -1744,8 +1801,8 @@ class FmmPlan:
                     res_t = self._l2p_slots(d, aux, L, p)
                 if len(self.m2p_src):
                     with log.span("m2p"):
-                        res_t = res_t + self._m2p_pass(
-                            d, tfields, M, p, nl_t, K_t)
+                        res_t = self._m2p_pass(
+                            d, aux, tfields, M, p, nl_t, K_t, res_t)
             if self.near_rows is not None and "panels" in aux:
                 with log.span("near"):
                     res_t = res_t + self._near_pass_slots(aux, q_t)
@@ -1904,13 +1961,30 @@ class FmmPlan:
                 )
         return L
 
-    def _m2p_pass(self, d, tfields, M, p, nl, K, slots=True):
+    def _m2p_pass(self, d, aux, tfields, M, p, nl, K, res, slots=True):
         """Multipole evaluation at the target tiles of level-skewed
-        pairs (and the treecode's far boxes), in slot layout, or
-        (``slots=False``) gathered back to target body rows.  Pairs run
-        in chunks of ``config.p2p_chunk`` to bound the transient
-        harmonics."""
+        pairs (and the treecode's far boxes), added to ``res``: the
+        slot-layout result ``[nl*K, rdim]``, or (``slots=False``) the
+        target body rows.  Returns the sum.
+
+        A kernel with the M2P tile math (``m2p_tile``: Laplace BEM) runs
+        ``ops/m2p_tile.py::m2p_tiles`` once over every pair, adding into
+        ``res`` in place on the slot route.  Any other kernel runs its
+        own ``m2p`` over chunks of ``config.p2p_chunk`` pairs, which
+        bound the transient harmonics."""
         kern = self.kernel
+        if getattr(kern, "m2p_tile", False):
+            log.count("m2p.kernel")
+            tiles = d["m2p_tiles"]
+            out = res.contiguous() if slots else torch.zeros(
+                (nl * K, 1), dtype=M.dtype, device=M.device)
+            m2p_tiles(
+                M, d["s_box_center"], tiles["leaves"], tiles["row_ptr"],
+                tiles["src"], tiles["isig"], tiles["cnt"], tiles["xyz"],
+                aux["m2p_bc"], out.view(nl, K), p,
+            )
+            return out if slots else res + out[d["t_body_flat_slot"]]
+        log.count("m2p.eager")
         W = kern.width(p)
         txyz_lt = d["t_xyz"][d["t_leaf_body_idx"]]  # [nl, K, 3]
         lt_f = {k: v[d["t_leaf_body_idx"]] for k, v in tfields.items()}
@@ -1946,9 +2020,9 @@ class FmmPlan:
             seg.index_add_(0, tgt_slots, vals.reshape(P, K, -1))
         out = seg.reshape(nl * K, -1)
         if not slots:
-            return out[d["t_body_flat_slot"]]
+            return res + out[d["t_body_flat_slot"]]
         # padded slots hold kernel values at dummy bodies — zero them
-        return torch.where(d["t_slot_mask"][:, None], out, 0.0)
+        return res + torch.where(d["t_slot_mask"][:, None], out, 0.0)
 
     def _p2p_pass(self, d, sfields, tfields, q_t, nl, K):
         """Direct P2P over the near leaf pairs of a point kernel.
@@ -2091,8 +2165,9 @@ class FmmPlan:
                             d, aux, tfields, L, p)
                 if len(self.m2p_src):
                     with log.span("m2p"):
-                        res_m = res_m + self._m2p_pass(
-                            d, tfields, M, p, nl_t, K_t, slots=False
+                        res_m = self._m2p_pass(
+                            d, aux, tfields, M, p, nl_t, K_t, res_m,
+                            slots=False,
                         )
             if self.near_rows is not None:
                 if "panels" in aux:

@@ -8,7 +8,10 @@ arrays (and nested lists of them) by the caller — into the operand
 takes.  The table layouts of the two packages are the same, so nothing
 is transposed: integers become index tensors, floats take the working
 dtype, and the near-panel index arrays get the int32 form and the row
-pointer the CUDA kernel reads.
+pointer the CUDA kernel reads.  Where the plan has level-skewed pairs
+and the target fields carry BC flags, the M2P pair tables
+(``d["m2p_tiles"]``) and the BC tile of the variant (``aux["m2p_bc"]``)
+that ``ops/m2p_tile.py`` reads are built here from ``d``, once.
 
 ``otf_panels_from_numpy`` does the same for the on-the-fly near mode:
 the reference plan's ``near_panels()`` dict (leaf-tiled panel fields,
@@ -21,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from fmm_bem_tpu_torch.ops.m2p_tile import pair_tables
 from fmm_bem_tpu_torch.ops.near_panel import (
     NearPanels,
     chunk_row_ptr,
@@ -85,9 +89,9 @@ def operand_from_numpy(d, aux, panels, meta, device="cuda",
         m0, block_rows, npairs, rdim, cdim, KT, KS`` (``None`` with
         ``panels``).
     fields : per-body field arrays in Morton order (numpy): the target
-        side of the M2P pass and of a table-less L2P, both sides of a
-        point kernel's P2P; may be omitted for a BEM plan with no
-        level-skewed pairs.
+        side of the M2P pass (its BC flags give ``aux["m2p_bc"]``) and
+        of a table-less L2P, both sides of a point kernel's P2P; may be
+        omitted for a BEM plan with no level-skewed pairs.
     kernels : optional ``(reference kernel, this package's kernel)``,
         held to each other by ``check_kernels_agree`` first.
     Returns ``(d, aux, sf, tf)`` on ``device``.
@@ -102,8 +106,11 @@ def operand_from_numpy(d, aux, panels, meta, device="cuda",
         {k: v for k, v in (fields or {}).items() if k != "vertices"},
         device, dtype,
     )
+    out_d = _to_torch(d, device, dtype)
+    if len(d.get("m2p_src", ())) and "bc" in (fields or {}):
+        _m2p_tables(d, fields["bc"], out_d, out_aux, device, dtype)
     if panels is None:
-        return _to_torch(d, device, dtype), out_aux, sf, sf
+        return out_d, out_aux, sf, sf
     get = meta.get if isinstance(meta, dict) else lambda k: getattr(meta, k)
     near_meta = NearPanels(
         A=None,
@@ -121,7 +128,27 @@ def operand_from_numpy(d, aux, panels, meta, device="cuda",
     )
     out_aux["panels"] = dev_panels
     out_aux["near_meta"] = near_meta
-    return _to_torch(d, device, dtype), out_aux, sf, sf
+    return out_d, out_aux, sf, sf
+
+
+def _m2p_tables(d, bc, out_d, out_aux, device, dtype):
+    """The M2P pair tables of ``ops/m2p_tile.py::pair_tables`` from the
+    numpy ``d`` into ``out_d["m2p_tiles"]`` (int32 tables, floats in
+    ``dtype``), and the BC tile [nb, K] of the pairs' target leaves from
+    the per-body flags ``bc`` into ``out_aux["m2p_bc"]``."""
+    idx = np.asarray(d["t_leaf_body_idx"])
+    rows = pair_tables(
+        d["m2p_src"], d["m2p_tgt_slot"], d["m2p_inv_sigma"], idx,
+        np.asarray(d["t_slot_mask"]).reshape(idx.shape), d["t_xyz"],
+    )
+    out_d["m2p_tiles"] = {
+        k: torch.as_tensor(
+            v, dtype=torch.int32 if v.dtype.kind in "iu" else dtype,
+            device=device)
+        for k, v in rows.items()
+    }
+    out_aux["m2p_bc"] = torch.as_tensor(
+        np.asarray(bc)[idx[rows["leaves"]]], dtype=dtype, device=device)
 
 
 def otf_panels_from_numpy(panels, device="cuda", dtype=torch.float32):
