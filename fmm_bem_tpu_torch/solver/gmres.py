@@ -500,6 +500,8 @@ def gmres_device(
             old = r_buf[k % STALL_WIN]
             if (k >= STALL_WIN and resid > ft(STALL_FACTOR) * old
                     and resid >= stop_tol):
+                if min_idx < len(tiers) - 1:
+                    log.count("gmres.stall_raises")
                 min_idx = min(min_idx + 1, len(tiers) - 1)
                 r_buf = [math.inf] * STALL_WIN
                 k = 0
@@ -533,6 +535,8 @@ def gmres_device(
                 )
                 r_buf[k % STALL_WIN] = resid
                 k += 1
+        if stalled:
+            log.count("gmres.stall_raises")
         return steps, stalled
 
     def finish(st, x):
@@ -557,6 +561,10 @@ def gmres_device(
             log.count("host_syncs")
             return r, float(torch.linalg.vector_norm(r))
 
+    # the stall guard's raises: the floor tier raised (tiered schedule)
+    # or a block ended as stalled (one order a block); registered at 0
+    # so that a solve without a stall reads 0
+    log.count("gmres.stall_raises", 0)
     log.count("host_syncs")
     normb = float(torch.linalg.vector_norm(b))
     if normb == 0.0:

@@ -23,6 +23,7 @@ from fmm_bem_tpu_torch.bem.triangulation import unit_sphere
 from fmm_bem_tpu_torch.kernels.laplace import LaplaceKernel
 from fmm_bem_tpu_torch.kernels.laplace_bem import LaplaceBEMKernel
 from fmm_bem_tpu_torch.kernels.stokes_bem import StokesBEMKernel
+from fmm_bem_tpu_torch.kernels.yukawa_bem import YukawaBEMKernel
 from fmm_bem_tpu_torch.solver.api import solve_plan
 from fmm_bem_tpu_torch.solver.gmres import DeviceGmresContext
 from fmm_bem_tpu_torch.utils.metrics import MARKER, Logger, log
@@ -62,6 +63,13 @@ def phase_case(case):
         return T.FmmPlan(LaplaceBEMKernel(K=3),
                          make_panels(two_spheres(), K=3),
                          T.FMMConfig(ncrit=8, **F64), device="cpu"), False
+    if case == "yukawa":
+        # per-level translations and the eager M2P; a low order keeps
+        # the build short
+        return T.FmmPlan(YukawaBEMKernel(K=3, kappa=0.125),
+                         make_panels(two_spheres(), K=3),
+                         T.FMMConfig(ncrit=8, dtype="float64", max_p=5),
+                         device="cpu"), False
     if case == "points":
         xyz = np.random.default_rng(4).uniform(0, 1, (1500, 3))
         return T.FmmPlan(LaplaceKernel(), {"xyz": xyz},
@@ -81,6 +89,7 @@ def phase_case(case):
 #: the phases each case runs, in order
 PHASES = {
     "skewed": ["p2m", "m2m", "m2l", "l2l", "l2p", "m2p", "near"],
+    "yukawa": ["p2m", "m2m", "m2l", "l2l", "l2p", "m2p", "near"],
     "otf": ["p2m", "m2m", "m2l", "l2l", "l2p", "near"],
     "stokes": ["p2m", "m2m", "m2l", "l2l", "l2p", "near"],
     "points": ["p2m", "m2m", "m2l", "l2l", "l2p", "p2p"],
@@ -120,7 +129,7 @@ def test_phase_spans_are_the_matvec(case):
     assert all(not children(spans, spans.index(s)) for s in leaves)
     assert {s[0] for s in spans} - PHASE_NAMES <= {
         "apply", "apply.entry", "apply.exit", "matvec"}
-    if case == "skewed":
+    if case in ("skewed", "yukawa"):
         assert len(plan.m2p_src) > 0 and plan.m2l_fam is not None
 
 
