@@ -35,7 +35,8 @@ block edges), and drives the port's paths at full size:
 - the Yukawa path: the screened first-kind problem of the reference
   program on the cached path's sphere of 131,072 panels
   (``YukawaBEMKernel(K=3, kappa=0.125)``, ncrit=64, leaf_pad=64, f32,
-  max_p=8): the relaxed solve with tiers (3, 5, 8), the mean dphi/dn
+  max_p=8): ``m2p_cart_tile`` on its level-skewed pairs at p = 3, 5, 8,
+  timed, the relaxed solve with tiers (3, 5, 8), the mean dphi/dn
   against the interior analytic value, chained matvecs at p=8 and p=5,
   the profiles, ``near_panel`` on its store, the same solve in f64; then
   at 8,192 panels one f32 matvec against the f64 one at p=8 and p=5, and
@@ -117,6 +118,7 @@ from fmm_bem_tpu_torch.kernels.cartesian import (
     LaplaceCartesianKernel,
     YukawaKernel,
 )
+from fmm_bem_tpu_torch.kernels import cartesian as ct
 from fmm_bem_tpu_torch.kernels import harmonics as hm
 from fmm_bem_tpu_torch.kernels.laplace import LaplaceKernel
 from fmm_bem_tpu_torch.kernels.laplace_bem import LaplaceBEMKernel
@@ -125,6 +127,7 @@ from fmm_bem_tpu_torch.kernels.stokes_bem import StokesBEMKernel
 from fmm_bem_tpu_torch.kernels.unit import UnitKernel
 from fmm_bem_tpu_torch.kernels.yukawa_bem import YukawaBEMKernel
 from fmm_bem_tpu_torch.ops import _build
+from fmm_bem_tpu_torch.ops import m2p_cart_tile as m2pc
 from fmm_bem_tpu_torch.ops import m2p_tile as m2p
 from fmm_bem_tpu_torch.ops import near_panel as npl
 from fmm_bem_tpu_torch.ops import otf_tile as otf
@@ -170,13 +173,34 @@ def m2p_flops(p):
     return 15 + 9 * (p - 1) + 5 * T + 9 * (T - p)
 
 
+def m2p_cart_flops(p):
+    """Arithmetic of one Yukawa M2P evaluation (target slot, pair) at
+    order p, as ``csrc/m2p_cart_tile.cu`` walks it: the scaled offset,
+    R^2, 1/R^2, kappa / g, the zeroth term and the pair's sum (16); per
+    degree k = kappa / n (1); per term of degree n > 0 with f first and s
+    second parents (``kernels/cartesian.py::index_set``) the two first
+    sums (2 (2f - 1)) and the two second sums (2 (s - 1)), the new a (7)
+    and b (2), and its contraction (2).  sqrt and exp are counted as
+    special-function results (``M2P_CART_SFU``)."""
+    _, deg, _, p1, p2 = ct.index_set(p)
+    f = (p1[1:] >= 0).sum(axis=1)
+    s = (p2[1:] >= 0).sum(axis=1)
+    return int(16 + p + np.sum(2 * (2 * f - 1) + 2 * np.maximum(s - 1, 0)
+                               + 11))
+
+
+#: special-function results of one Yukawa M2P evaluation: sqrt and exp
+M2P_CART_SFU = 2
+
+
 #: the point Laplace kernel's self-exclusion threshold on r^2
 P2P_EPS2 = LaplaceKernel.eps2
 #: the package's hand-written kernels; their wrappers carry the launch
-#: counts (m2p_tile, which ports no TPU kernel, runs beside the near
-#: field's kernel: ``m2p_per_matvec``)
+#: counts (m2p_tile and m2p_cart_tile, which port no TPU kernel, run
+#: beside the near field's kernel: ``m2p_per_matvec``)
 WRAPPERS = {
     "m2p_tile": m2p.m2p_tiles,
+    "m2p_cart_tile": m2pc.m2p_cart_tiles,
     "near_panel": npl.panel_matvec_fused,
     "otf_tile": otf.otf_leaf_tiles,
     "p2p_tile": p2p.p2p_leaf_tiles,
@@ -229,6 +253,8 @@ STOKES_REC8_HOST_BUDGET_S = 120.0
 #: default_p_tiers(8)), on the cached path's sphere with leaf_pad=64
 YUKAWA_KAPPA = 0.125
 YUKAWA_P = 8
+#: the orders m2p_cart_tile is held to its plain version at and timed
+YUKAWA_M2P_ORDERS = (3, 5, YUKAWA_P)
 #: the mean dphi/dn against the interior value -(kappa coth kappa - 1):
 #: the JAX package's own bar at 512 panels (tests/test_yukawa.py)
 YUKAWA_ANALYTIC_LIMIT = 5e-2
@@ -357,19 +383,37 @@ def launch_counts():
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
+#: the M2P kernels, which a kernel's ``m2p_tile`` marker names
+M2P_KERNELS = ("m2p_tile", "m2p_cart_tile")
+
+
 def m2p_per_matvec(plan):
-    """m2p_tile's launches in one matvec of ``plan``: 1 where its kernel
-    carries the ``m2p_tile`` marker and the plan has a far field with
-    level-skewed pairs, else 0."""
-    return int(bool(getattr(plan.kernel, "m2p_tile", False))
-               and not plan.near_only and len(plan.m2p_src) > 0)
+    """{M2P kernel: its launches in one matvec of ``plan``}: 1 for the
+    kernel the plan's kernel's ``m2p_tile`` marker names (m2p_tile for
+    Laplace BEM, m2p_cart_tile for Yukawa BEM) where the plan has a far
+    field with level-skewed pairs, 0 for every other."""
+    want = dict.fromkeys(M2P_KERNELS, 0)
+    name = getattr(plan.kernel, "m2p_tile", None)
+    if name and not plan.near_only and len(plan.m2p_src) > 0:
+        want[name] = 1
+    return want
+
+
+def m2p_expected(plans, matvecs):
+    """{M2P kernel: launches} of ``matvecs[k]`` matvecs of each
+    ``plans[k]``."""
+    want = dict.fromkeys(M2P_KERNELS, 0)
+    for plan, n in zip(plans, matvecs):
+        for name, per in m2p_per_matvec(plan).items():
+            want[name] += n * per
+    return want
 
 
 def matvec_counts(plan, matvecs=1, **launched):
     """The launch counts of ``matvecs`` matvecs of ``plan`` that launch
-    ``launched`` besides m2p_tile's own, and no other kernel."""
+    ``launched`` besides its M2P kernel's own, and no other kernel."""
     return {**dict.fromkeys(WRAPPERS, 0),
-            "m2p_tile": matvecs * m2p_per_matvec(plan), **launched}
+            **m2p_expected([plan], [matvecs]), **launched}
 
 
 def build_plan(recursions, dtype, ncrit=64, leaf_pad=64, near_mode="cached",
@@ -650,14 +694,41 @@ def m2p_skewed_plan(dtype):
 
 
 def check_m2p_tile(plan, tdt, tol, label, orders, time_it=False):
-    """The m2p_tile kernel against its plain version on the card, on the
-    plan's pair tables in ``tdt`` (the plan's own dtype or f64), seeded
+    """The m2p_tile kernel (Laplace BEM) against its plain version on the
+    card: ``check_m2p_kernel``."""
+    return check_m2p_kernel("m2p_tile", plan, tdt, tol, label, orders,
+                            time_it)
+
+
+def check_m2p_cart_tile(plan, tdt, tol, label, orders, time_it=False):
+    """The m2p_cart_tile kernel (Yukawa BEM, at the plan's kappa) against
+    its plain version on the card: ``check_m2p_kernel``."""
+    return check_m2p_kernel("m2p_cart_tile", plan, tdt, tol, label, orders,
+                            time_it)
+
+
+#: per M2P kernel: its wrapper, its plain version, the width of a row's
+#: component at order p, the flops and special-function results of one
+#: evaluation, and whether it takes the kernel's kappa
+M2P_CHECKS = {
+    "m2p_tile": (m2p.m2p_tiles, m2p.m2p_tiles_reference, hm.real_width,
+                 m2p_flops, 0, False),
+    "m2p_cart_tile": (m2pc.m2p_cart_tiles, m2pc.m2p_cart_tiles_reference,
+                      ct.num_terms, m2p_cart_flops, M2P_CART_SFU, True),
+}
+
+
+def check_m2p_kernel(name, plan, tdt, tol, label, orders, time_it=False):
+    """An M2P kernel against its plain version on the card, on the plan's
+    pair tables in ``tdt`` (the plan's own dtype or f64), seeded
     multipole rows and both BC variants, at each order of ``orders``:
     relative to the largest value (f32 differs by the recurrence's
-    ratios taken as products and by the order of the pair sums), padded
+    factors taken as products and by the order of the pair sums), padded
     slots exactly 0, a second launch the same bits.  With ``time_it``
     each order's kernel is timed beside its bound and the plain
     version's time (BC variant 0).  Returns the records."""
+    fn, plain, width, flops_of, sfu, takes_kappa = M2P_CHECKS[name]
+    extra = (plan.kernel.kappa,) if takes_kappa else ()
     recs = []
     nl, K = len(plan.tgt.leaf_ids), plan.tgt.leaf_pad
     for p in orders:
@@ -665,7 +736,7 @@ def check_m2p_tile(plan, tdt, tol, label, orders, time_it=False):
         tiles = {k: (v.to(tdt) if v.is_floating_point() else v)
                  for k, v in d["m2p_tiles"].items()}
         gen = torch.Generator(device=DEV).manual_seed(13 + p)
-        M = torch.randn((plan.src.tree.num_boxes, 2 * hm.real_width(p)),
+        M = torch.randn((plan.src.tree.num_boxes, 2 * width(p)),
                         generator=gen, dtype=tdt, device=DEV)
         pad = ~d["t_slot_mask"].reshape(nl, K)
         for bc_name, fh in (("bc0", None), ("bc1", plan._flipped_fields())):
@@ -674,17 +745,17 @@ def check_m2p_tile(plan, tdt, tol, label, orders, time_it=False):
                     tiles["row_ptr"], tiles["src"], tiles["isig"],
                     tiles["cnt"], tiles["xyz"], bc.to(tdt))
             zeros = torch.zeros((nl, K), dtype=tdt, device=DEV)
-            before = m2p.m2p_tiles.launches
-            got = m2p.m2p_tiles(*args, zeros.clone(), p)
-            again = m2p.m2p_tiles(*args, zeros.clone(), p)
-            launched = m2p.m2p_tiles.launches - before
+            before = fn.launches
+            got = fn(*args, zeros.clone(), p, *extra)
+            again = fn(*args, zeros.clone(), p, *extra)
+            launched = fn.launches - before
             torch.cuda.synchronize()
-            want = m2p.m2p_tiles_reference(*args, zeros.clone(), p)
+            want = plain(*args, zeros.clone(), p, *extra)
             rel = float((got - want).abs().max() / want.abs().max())
             zeros_exact = bool((got[pad] == 0).all())
             bit_equal = torch.equal(got, again)
             rec = {
-                "kernel": "m2p_tile", "case": f"{label}_p{p}_{bc_name}",
+                "kernel": name, "case": f"{label}_p{p}_{bc_name}",
                 "dtype": str(tdt).replace("torch.", ""), "p": p,
                 "pairs": int(tiles["src"].shape[0]),
                 "target_leaves": int(tiles["leaves"].shape[0]),
@@ -697,7 +768,7 @@ def check_m2p_tile(plan, tdt, tol, label, orders, time_it=False):
             if not (rel <= tol and zeros_exact and bit_equal
                     and rec["all_finite"] and launched == 2):
                 emit(rec)
-                fail(f"m2p_tile[{rec['case']}] disagrees with its plain "
+                fail(f"{name}[{rec['case']}] disagrees with its plain "
                      f"version: rel {rel:.3e} > {tol:.1e}, exact zeros "
                      f"{zeros_exact}, repeat bit-equal {bit_equal}, "
                      f"launches {launched}")
@@ -706,22 +777,22 @@ def check_m2p_tile(plan, tdt, tol, label, orders, time_it=False):
                 per_leaf = tiles["row_ptr"][1:] - tiles["row_ptr"][:-1]
                 evals = int((cnt * per_leaf.long()).sum())
                 rec["evaluations"] = evals
-                rec["flops_per_evaluation"] = m2p_flops(p)
+                rec["flops_per_evaluation"] = flops_of(p)
                 # each source box's M row once, the tables, the slots'
                 # coordinates and flags, and the result tiles read and
                 # written
                 rows = int(torch.unique(tiles["src"]).numel())
-                nbytes = (rows * 2 * hm.real_width(p) * M.element_size()
+                nbytes = (rows * 2 * width(p) * M.element_size()
                           + nbytes_of(*args[2:]) + 2 * nbytes_of(
                               got[tiles["leaves"].long()]))
-                arithmetic_bound(rec, nbytes, evals * m2p_flops(p), 0, tdt)
+                arithmetic_bound(rec, nbytes, evals * flops_of(p),
+                                 evals * sfu, tdt)
                 out = zeros.clone()
-                rec["ms"] = gpu_ms(lambda: m2p.m2p_tiles(*args, out, p), 20)
+                rec["ms"] = gpu_ms(lambda: fn(*args, out, p, *extra), 20)
                 rec["graph_ms"] = graph_ms(
-                    lambda: m2p.m2p_tiles(*args, out, p))
+                    lambda: fn(*args, out, p, *extra))
                 rec["plain_ms"] = gpu_ms(
-                    lambda: m2p.m2p_tiles_reference(*args, out, p), 2, 1,
-                    batches=1)
+                    lambda: plain(*args, out, p, *extra), 2, 1, batches=1)
                 rec["library_ms"] = None  # no single PyTorch call does this
             recs.append(rec)
     return recs
@@ -2009,26 +2080,27 @@ def drive_slot_path(plan, kernel, orders, x0, chain, solves):
         "chain": chain, "launches_per_matvec": per_matvec,
         "matvecs": calls["matvecs"], "kernel": kernel,
         "kernel_launches": counts[kernel], "launch_counts": counts,
-        "m2p_launches_expected": calls["matvecs"] * m2p_per_matvec(plan),
+        "m2p_launches_expected": m2p_expected([plan], [calls["matvecs"]]),
         "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
     }
 
 
 def hold_launches(rec, path):
     """Fail unless the path's kernel launched once per matvec the plans
-    ran, m2p_tile as often as their matvecs run it
+    ran, each M2P kernel as often as their matvecs run it
     (``m2p_launches_expected``), and no other kernel launched."""
     kernel, counts = rec["kernel"], rec["launch_counts"]
     others = sum(v for k, v in counts.items()
-                 if k not in (kernel, "m2p_tile"))
+                 if k not in (kernel, *M2P_KERNELS))
     own = rec.get("kernel_launches_per_plan", [rec["matvecs"]])
     per_plan = rec.get("matvecs_per_plan", [rec["matvecs"]])
+    m2p_counts = {k: counts[k] for k in M2P_KERNELS}
     if (counts[kernel] == 0 or counts[kernel] != rec["matvecs"] or others
             or own != per_plan
-            or counts["m2p_tile"] != rec["m2p_launches_expected"]):
+            or m2p_counts != rec["m2p_launches_expected"]):
         fail(f"{kernel} launched {counts[kernel]} times in {rec['matvecs']} "
              f"matvecs ({own} in the matvecs {per_plan} of each plan; all "
-             f"counts: {counts}, m2p_tile expected "
+             f"counts: {counts}, M2P kernels expected "
              f"{rec['m2p_launches_expected']}): the {path} path did not go "
              "through its kernels, and no other, once per matvec")
 
@@ -2232,7 +2304,7 @@ def phase_yukawa_path(plan, n, chain=20):
     emit(rec)
     hold_yukawa_solve(solve, "f32")
     hold_launches(rec, "Yukawa")
-    return solve
+    return solve, rec["launch_counts"]
 
 
 def phase_yukawa_f64_full(recursions, f32, f32_host):
@@ -2344,8 +2416,15 @@ def path_yukawa(recursions, small_recursions):
     nl = len(plan.leaf_ids)
     near = check_near_panel(panels, meta, nl, 1e-5, "yukawa_path",
                             time_it=True)
+    m2p_recs = []
+    if len(plan.m2p_src):
+        m2p_recs = check_m2p_cart_tile(plan, torch.float32, 1e-5,
+                                       "yukawa_path", YUKAWA_M2P_ORDERS,
+                                       time_it=True)
+        m2p_recs += check_m2p_cart_tile(plan, torch.float64, 1e-12,
+                                        "yukawa_path", YUKAWA_M2P_ORDERS)
     torch.cuda.empty_cache()
-    solve = phase_yukawa_path(plan, n)
+    solve, solve_launches = phase_yukawa_path(plan, n)
     host = phase_yukawa_host(plan, n)
     ones = np.ones(n, np.float32)
     phase_profile(plan, ones, p=YUKAWA_P, phase="yukawa_profile")
@@ -2354,7 +2433,13 @@ def path_yukawa(recursions, small_recursions):
     del plan, panels
     phase_yukawa_f64_full(recursions, solve, host)
     phase_yukawa_f64(small_recursions)
-    return [near]
+    entries = []
+    if m2p_recs:
+        entries = [dict(kernel_entry(
+            "m2p_cart_tile", None,
+            next(r for r in m2p_recs if r["p"] == YUKAWA_P and "ms" in r),
+            solve_launches["m2p_cart_tile"]), path="yukawa")]
+    return [near, *m2p_recs], entries
 
 
 def path_point_kernels(scale):
@@ -2480,8 +2565,7 @@ def counted_run(plans, kernel, fn, what):
            "matvecs_per_plan": calls, "kernel": kernel,
            "kernel_launches": counts[kernel],
            "kernel_launches_per_plan": own, "launch_counts": counts,
-           "m2p_launches_expected": sum(
-               c * m2p_per_matvec(plan) for c, plan in zip(calls, plans))}
+           "m2p_launches_expected": m2p_expected(plans, calls)}
     hold_launches(rec, what)
     return out, rec
 
@@ -3013,11 +3097,12 @@ def phase_twins(laplace_recursions, small_recursions):
                "printed": [ln for ln in lines if "error" in ln
                            or "solve :" in ln or "analytic" in ln]}
         others = sum(v for k, v in counts.items()
-                     if k not in (kernel, "m2p_tile"))
-        # m2p_tile runs in the plan's full matvecs, each of which also
-        # runs the near-field kernel
-        m2p_ok = (0 < counts["m2p_tile"] <= counts[kernel]
-                  if m2p_per_matvec(plan) else counts["m2p_tile"] == 0)
+                     if k not in (kernel, *M2P_KERNELS))
+        # the plan's M2P kernel runs in its full matvecs, each of which
+        # also runs the near-field kernel; no other M2P kernel runs
+        per = m2p_per_matvec(plan)
+        m2p_ok = all(0 < counts[k] <= counts[kernel] if per[k]
+                     else counts[k] == 0 for k in M2P_KERNELS)
         if counts[kernel] == 0 or others or not m2p_ok:
             emit(rec)
             fail(f"the {name} program launched {counts}")
@@ -3119,8 +3204,8 @@ def phase_body_order(plan, label, kernel, p, seed=21):
              f"{rel:.3e}")
     if counts != matvec_counts(plan, **{kernel: 1}):
         fail(f"body order on the {label} plan launched {counts}: not "
-             f"{kernel} once, m2p_tile as its matvec runs it, and no "
-             "other kernel")
+             f"{kernel} once, its M2P kernel as its matvec runs it, and "
+             "no other kernel")
     return rec
 
 
@@ -4125,7 +4210,7 @@ def main():
         "phase": "kernels_small", "build_s": build_s,
         "nvcc_report": {
             name: _build.build_logs.get(name, "").strip().splitlines()[-12:]
-            for name in sorted(WRAPPERS) + ["m2p_tile"]
+            for name in sorted(WRAPPERS)
         },
         "checks": checks,
     })
@@ -4158,10 +4243,12 @@ def main():
     entries.extend([bd_entry, local_entry])
     # the Yukawa BEM path runs near_panel on a store of screened entries
     t0 = time.time()
-    yukawa_checks = path_yukawa(yukawa_recursions, yukawa_small)
+    yukawa_checks, yukawa_entries = path_yukawa(yukawa_recursions,
+                                                yukawa_small)
     emit({"phase": "kernels", "kernel": "near_panel", "path": "yukawa",
           "checks": yukawa_checks, "launches_per_matvec": 1,
           "path_s": time.time() - t0})
+    entries.extend(yukawa_entries)
     t0 = time.time()
     path_point_kernels(point_scale)
     emit({"phase": "point_kernels_done", "path_s": time.time() - t0})

@@ -15,8 +15,8 @@ ops on the plan's device:
     L2L   octant-class matmuls per level, top-down
     L2P   slot-ordered linear table contracted with the leaf locals
     M2P   treecode far field, and fallback for level-skewed pairs (for
-          the Laplace BEM kernel one launch over every pair,
-          ops/m2p_tile.py)
+          the Laplace and Yukawa BEM kernels one launch over every pair,
+          ops/m2p_tile.py and ops/m2p_cart_tile.py)
     near  BEM kernels: the cached leaf-panel store (ops/near_panel.py:
           the fused kernel for scalar entries, the two-stage route
           through the chunk-contraction kernel for the 3x3 blocks of
@@ -74,6 +74,7 @@ import torch
 from fmm_bem_tpu_torch.config import Evaluator, FMMConfig
 from fmm_bem_tpu_torch.ops import _build
 from fmm_bem_tpu_torch.ops.bucket_sum import bucket_sum_apply, build_bucket_sum
+from fmm_bem_tpu_torch.ops.m2p_cart_tile import m2p_cart_tiles
 from fmm_bem_tpu_torch.ops.m2p_tile import m2p_tiles
 from fmm_bem_tpu_torch.ops.m2p_tile import pair_tables as m2p_pair_tables
 from fmm_bem_tpu_torch.ops.near_panel import (
@@ -374,9 +375,9 @@ def cuda_kernels(kernel, config, dual):
     exist.  A plan that turns out to have no pairs of a kind never
     launches that kernel; its build was then started for nothing."""
     names = []
-    if (getattr(kernel, "m2p_tile", False)
-            and not (config.local_evaluation or config.block_diagonal)):
-        names.append("m2p_tile")
+    m2p = getattr(kernel, "m2p_tile", None)
+    if m2p and not (config.local_evaluation or config.block_diagonal):
+        names.append(m2p)
     if not getattr(kernel, "near_sparse", False):
         if getattr(kernel, "p2p_tile", False) and not dual:
             names.append("p2p_tile")
@@ -671,8 +672,9 @@ class FmmPlan:
         self.m2p_inv_sigma = (
             1.0 / st.box_radius[ms] if len(ms) else np.zeros(0)
         )
-        # a kernel with the M2P tile math (ops/m2p_tile.py) walks the
-        # pairs by target leaf
+        # a kernel with an M2P tile kernel (its ``m2p_tile`` marker:
+        # ops/m2p_tile.py, ops/m2p_cart_tile.py) walks the pairs by
+        # target leaf
         self._m2p_rows = (
             m2p_pair_tables(
                 ms, self.m2p_tgt_slot, self.m2p_inv_sigma,
@@ -1967,22 +1969,28 @@ class FmmPlan:
         slot-layout result ``[nl*K, rdim]``, or (``slots=False``) the
         target body rows.  Returns the sum.
 
-        A kernel with the M2P tile math (``m2p_tile``: Laplace BEM) runs
-        ``ops/m2p_tile.py::m2p_tiles`` once over every pair, adding into
-        ``res`` in place on the slot route.  Any other kernel runs its
-        own ``m2p`` over chunks of ``config.p2p_chunk`` pairs, which
-        bound the transient harmonics."""
+        A kernel with an M2P tile kernel runs it once over every pair,
+        adding into ``res`` in place on the slot route: its ``m2p_tile``
+        marker names it, ``"m2p_tile"`` (Laplace BEM,
+        ``ops/m2p_tile.py::m2p_tiles``) or ``"m2p_cart_tile"`` (Yukawa
+        BEM, ``ops/m2p_cart_tile.py::m2p_cart_tiles``, at the kernel's
+        kappa).  Any other kernel runs its own ``m2p`` over chunks of
+        ``config.p2p_chunk`` pairs, which bound the transient
+        harmonics."""
         kern = self.kernel
-        if getattr(kern, "m2p_tile", False):
+        route = getattr(kern, "m2p_tile", None)
+        if route:
             log.count("m2p.kernel")
             tiles = d["m2p_tiles"]
             out = res.contiguous() if slots else torch.zeros(
                 (nl * K, 1), dtype=M.dtype, device=M.device)
-            m2p_tiles(
-                M, d["s_box_center"], tiles["leaves"], tiles["row_ptr"],
-                tiles["src"], tiles["isig"], tiles["cnt"], tiles["xyz"],
-                aux["m2p_bc"], out.view(nl, K), p,
-            )
+            args = (M, d["s_box_center"], tiles["leaves"], tiles["row_ptr"],
+                    tiles["src"], tiles["isig"], tiles["cnt"], tiles["xyz"],
+                    aux["m2p_bc"], out.view(nl, K), p)
+            if route == "m2p_cart_tile":
+                m2p_cart_tiles(*args, kern.kappa)
+            else:
+                m2p_tiles(*args)
             return out if slots else res + out[d["t_body_flat_slot"]]
         log.count("m2p.eager")
         W = kern.width(p)

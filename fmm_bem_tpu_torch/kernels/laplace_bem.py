@@ -50,9 +50,9 @@ class LaplaceBEMKernel:
     #: the on-the-fly near product runs as the leaf-tile kernel of
     #: ops/otf_tile.py (this class's ``near_block_device`` math)
     otf_tile = True
-    #: the M2P evaluation runs as the leaf-tile kernel of
+    #: the M2P evaluation runs as the leaf-tile kernel it names,
     #: ops/m2p_tile.py (this class's ``m2p`` math)
-    m2p_tile = True
+    m2p_tile = "m2p_tile"
 
     def __init__(self, K=3, fine_K=17):
         self.K = K

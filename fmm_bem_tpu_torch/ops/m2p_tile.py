@@ -75,8 +75,16 @@ def m2p_tiles_reference(M, centers, leaves, row_ptr, src, isig, cnt, xyz,
     into ``out`` [nl, K] in place.  Bad tables read as the kernel reads
     them: a count is clamped to [0, K], a source box outside [0, nbox)
     is an empty pair.  Returns ``out``."""
+    return grouped_reference(_KERNEL, hm.real_width(p), M, centers, leaves,
+                             row_ptr, src, isig, cnt, xyz, bc, out, p, chunk)
+
+
+def grouped_reference(kern, W, M, centers, leaves, row_ptr, src, isig, cnt,
+                      xyz, bc, out, p, chunk=1024):
+    """The plain versions' common walk: ``kern.m2p`` (a BEM kernel of two
+    components of width ``W``, result one value) over chunks of the
+    grouped pairs, as ``m2p_tiles_reference`` says."""
     nb, K = bc.shape
-    W = hm.real_width(p)
     counts = (row_ptr[1:] - row_ptr[:-1]).long()
     npairs = int(counts.sum())
     if nb == 0 or npairs == 0:
@@ -93,7 +101,7 @@ def m2p_tiles_reference(M, centers, leaves, row_ptr, src, isig, cnt, xyz,
         sig = isig[start + c0 : start + c0 + chunk][keep]
         P = ss.shape[0]
         dn = (xyz[bb] - centers[ss][:, None, :]) * sig[:, None, None]
-        vals = _KERNEL.m2p(
+        vals = kern.m2p(
             {"bc": bc[bb].reshape(P * K)},
             M[ss].reshape(P, 1, 2, W).expand(P, K, 2, W).reshape(P * K, 2, W),
             dn.reshape(P * K, 3),
@@ -149,32 +157,40 @@ def check_kernel_args(M, centers, leaves, row_ptr, src, isig, cnt, xyz, bc,
     that type; int32 ``leaves`` [nb], ``row_ptr`` [nb + 1], ``src``
     [npairs] and ``cnt`` [nb]; all contiguous and on one device.  Raises
     TypeError / ValueError / RuntimeError; returns (nb, K)."""
+    return check_tile_args("m2p_tiles", hm.real_width(p), M, centers, leaves,
+                           row_ptr, src, isig, cnt, xyz, bc, out, p)
+
+
+def check_tile_args(name, W, M, centers, leaves, row_ptr, src, isig, cnt,
+                    xyz, bc, out, p):
+    """``check_kernel_args`` for an M2P tile kernel ``name`` whose rows
+    hold two components of width ``W``."""
     if M.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"m2p_tiles: M {M.dtype} must be float32 or float64")
+        raise TypeError(f"{name}: M {M.dtype} must be float32 or float64")
     named = (("M", M), ("centers", centers), ("leaves", leaves),
              ("row_ptr", row_ptr), ("src", src), ("isig", isig),
              ("cnt", cnt), ("xyz", xyz), ("bc", bc), ("out", out))
-    for name, t in named:
-        want = torch.int32 if name in ("leaves", "row_ptr", "src",
-                                       "cnt") else M.dtype
+    for arg, t in named:
+        want = torch.int32 if arg in ("leaves", "row_ptr", "src",
+                                      "cnt") else M.dtype
         if t.dtype != want:
-            raise TypeError(f"m2p_tiles: {name} is {t.dtype}, not {want}")
+            raise TypeError(f"{name}: {arg} is {t.dtype}, not {want}")
         if t.device != M.device:
             raise RuntimeError(
-                f"m2p_tiles: {name} on {t.device}, M on {M.device}")
+                f"{name}: {arg} on {t.device}, M on {M.device}")
         if not t.is_contiguous():
-            raise ValueError(f"m2p_tiles: {name} must be contiguous")
+            raise ValueError(f"{name}: {arg} must be contiguous")
     nb = leaves.shape[0]
     K = out.shape[-1]
     if (
-        p < 1 or M.ndim != 2 or M.shape[1] != 2 * hm.real_width(p)
+        p < 1 or M.ndim != 2 or M.shape[1] != 2 * W
         or centers.shape != (M.shape[0], 3) or leaves.ndim != 1
         or row_ptr.shape != (nb + 1,) or src.ndim != 1
         or isig.shape != src.shape or cnt.shape != (nb,)
         or xyz.shape != (nb, K, 3) or bc.shape != (nb, K) or out.ndim != 2
     ):
         raise ValueError(
-            f"m2p_tiles: shapes M {tuple(M.shape)} (p={p}) centers "
+            f"{name}: shapes M {tuple(M.shape)} (p={p}) centers "
             f"{tuple(centers.shape)} leaves {tuple(leaves.shape)} row_ptr "
             f"{tuple(row_ptr.shape)} src {tuple(src.shape)} isig "
             f"{tuple(isig.shape)} cnt {tuple(cnt.shape)} xyz "

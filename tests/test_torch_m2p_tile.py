@@ -28,6 +28,7 @@ from fmm_bem_tpu_torch.bem.panels import make_panels
 from fmm_bem_tpu_torch.bem.triangulation import unit_sphere
 from fmm_bem_tpu_torch.executor import plan as plan_mod
 from fmm_bem_tpu_torch.kernels import harmonics as hm
+from fmm_bem_tpu_torch.kernels.cartesian import YukawaKernel
 from fmm_bem_tpu_torch.kernels.laplace_bem import LaplaceBEMKernel
 from fmm_bem_tpu_torch.kernels.yukawa_bem import YukawaBEMKernel
 from fmm_bem_tpu_torch.ops import m2p_tile as mt
@@ -254,30 +255,43 @@ def profiled_counts(fn):
     return counts
 
 
-@pytest.mark.parametrize("kernel", ["laplace_bem", "yukawa_bem"])
+@pytest.mark.parametrize("kernel", ["laplace_bem", "yukawa_bem",
+                                    "unmarked"])
 def test_which_route_runs(kernel, monkeypatch):
     """Each ``_m2p_pass`` counts its route: ``m2p.kernel`` on a Laplace BEM
-    plan (one a matvec, ``m2p.eager`` never); a Yukawa BEM plan, whose
-    kernel has no marker, takes the eager pass and never calls the
-    wrapper."""
+    plan and on a Yukawa BEM plan (one a matvec, ``m2p.eager`` never),
+    each through the wrapper its kernel's marker names and never the
+    other; a kernel without the marker (the Yukawa BEM plan's kernel
+    given the point ``YukawaKernel``'s none) takes the eager pass and
+    calls neither wrapper."""
     if kernel == "laplace_bem":
         plan = skewed_plan(max_p=4)
     else:
         # per-level translations: a low order keeps the build short
         plan = skewed_plan(kernel=YukawaBEMKernel(K=3, kappa=0.125), max_p=4)
-        assert not getattr(plan.kernel, "m2p_tile", False)
-        assert plan._m2p_rows is None and len(plan.m2p_src) > 0
+        assert plan.kernel.m2p_tile == "m2p_cart_tile"
+        assert plan._m2p_rows is not None and len(plan.m2p_src) > 0
+    if kernel == "unmarked":
+        monkeypatch.setattr(plan.kernel, "m2p_tile",
+                            getattr(YukawaKernel(), "m2p_tile", None))
+    called = []
+    for name in ("m2p_tiles", "m2p_cart_tiles"):
+        wrapper = getattr(plan_mod, name)
 
-        def refuse(*a, **k):
-            raise AssertionError("m2p_tiles called for a Yukawa BEM plan")
+        def counted(*a, _name=name, _wrapper=wrapper, **k):
+            called.append(_name)
+            return _wrapper(*a, **k)
 
-        monkeypatch.setattr(plan_mod, "m2p_tiles", refuse)
+        monkeypatch.setattr(plan_mod, name, counted)
     q = np.random.default_rng(2).standard_normal(plan.src.tree.num_bodies)
     counts = profiled_counts(lambda: (plan.apply(q, p=4),
                                       plan.apply_body_order(q, p=4)))
-    route = "m2p.kernel" if kernel == "laplace_bem" else "m2p.eager"
-    other = "m2p.eager" if kernel == "laplace_bem" else "m2p.kernel"
+    route = "m2p.eager" if kernel == "unmarked" else "m2p.kernel"
+    other = "m2p.kernel" if kernel == "unmarked" else "m2p.eager"
     assert counts.get(route) == 2 and other not in counts
+    assert called == {"laplace_bem": ["m2p_tiles"] * 2,
+                      "yukawa_bem": ["m2p_cart_tiles"] * 2,
+                      "unmarked": []}[kernel]
 
 
 def small_tables(dtype=torch.float64, device="cpu"):

@@ -4,8 +4,10 @@
   stall guard (tiered schedule) and each block the guard ends as stalled
   (one order a block), and reads 0 at a fixed order;
 - in a relaxed solve on a small Yukawa BEM plan with level-skewed pairs
-  every phase span records once a matvec, and M2P takes the eager route
-  once a matvec (an ``apply``'s phases: ``test_torch_tracing.py``).
+  every phase span records once a matvec, and M2P takes the kernel route
+  (``ops/m2p_cart_tile.py``) once a matvec, or the eager route once a
+  matvec where the kernel's marker is switched off (an ``apply``'s
+  phases: ``test_torch_tracing.py``).
 
 Spans and counters record only under a ``torch.profiler`` session
 (``fmm_bem_tpu_torch/utils/metrics.py``)."""
@@ -89,16 +91,31 @@ def yukawa_skewed():
                      make_panels(tris, K=3),
                      T.FMMConfig(ncrit=8, dtype="float64", max_p=4),
                      device="cpu")
-    assert len(plan.m2p_src) > 0 and not getattr(plan.kernel, "m2p_tile",
-                                                  False)
+    assert len(plan.m2p_src) > 0
+    assert plan.kernel.m2p_tile == "m2p_cart_tile"
     return plan
 
 
-def test_yukawa_solve_counts_eager_m2p_per_matvec(yukawa_skewed):
-    """A relaxed Yukawa solve: one ``m2p.eager`` a ``matvec`` span
-    (Arnoldi steps and true residuals), never ``m2p.kernel``; the stall
+def test_yukawa_solve_counts_kernel_m2p_per_matvec(yukawa_skewed):
+    """A relaxed Yukawa solve: one ``m2p.kernel`` a ``matvec`` span
+    (Arnoldi steps and true residuals), never ``m2p.eager``; the stall
     counter is registered for the solve."""
-    plan = yukawa_skewed
+    solve_counts(yukawa_skewed, "m2p.kernel", "m2p.eager")
+
+
+def test_yukawa_solve_counts_eager_m2p_per_matvec(yukawa_skewed,
+                                                  monkeypatch):
+    """The same solve with the kernel's marker switched off (a kernel
+    without an M2P tile kernel): one ``m2p.eager`` a ``matvec`` span,
+    never ``m2p.kernel``."""
+    monkeypatch.setattr(yukawa_skewed.kernel, "m2p_tile", None)
+    solve_counts(yukawa_skewed, "m2p.eager", "m2p.kernel")
+
+
+def solve_counts(plan, route, other):
+    """A relaxed solve on ``plan``: its M2P route counted once a
+    ``matvec`` span, the other never, every phase span once a matvec,
+    the stall counter registered."""
     n = plan.src.tree.num_bodies
     b = plan.apply_flipped_bc(np.ones(n), p=4)[:, 0].numpy()
     cfg = T.SolverConfig(residual=1e-5, max_iters=8, restart=8, max_p=4,
@@ -109,7 +126,7 @@ def test_yukawa_solve_counts_eager_m2p_per_matvec(yukawa_skewed):
     matvecs = names.count("matvec")
     assert matvecs == info.iterations + names.count("solve.true_resid")
     counts = totals()
-    assert counts["m2p.eager"] == matvecs and "m2p.kernel" not in counts
+    assert counts[route] == matvecs and other not in counts
     assert STALL in counts
     for phase in ("p2m", "m2m", "m2l", "l2l", "l2p", "m2p", "near"):
         assert names.count(phase) == matvecs, phase
