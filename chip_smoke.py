@@ -56,10 +56,11 @@ block edges), and drives the port's paths at full size:
   block-diagonal point plan on the million points (``p2p_tile`` on its
   self pairs, the block-diagonal preconditioner); then the three BEM
   example programs of the port run in-process;
-- the plans without a slot operator: one body-order ``apply`` on each
-  plan above against its slot-order one; the COO near-field replay
+- the field overrides and the plans of the other layouts: one
+  ``apply`` with explicit source and target fields on each plan above
+  against its plain one; the COO near-field replay
   (``near_panel=False``) of the cached sphere, its ``droptol`` and its
-  first-kind solve on the body-order operator, the Stokes COO plan
+  first-kind solve on the slot operator, the Stokes COO plan
   against its panel plan; dual trees: ``LaplaceKernel`` on 1,000,000
   sources and as many targets, the unit kernel exact in f64, the
   cached sphere evaluated at 200,000 off-surface points against
@@ -1807,7 +1808,7 @@ def path_cached(recursions):
     phase_cached_solvers(plan, fields, n, main_rec["first_kind_relaxed"])
     near_entries = []
     near_checks = phase_near_only(plan, fields, n, near_entries)
-    phase_body_order(plan, "cached", "near_panel", 5)
+    phase_override(plan, "cached", "near_panel", 5)
 
     # the on-the-fly operator on the same sphere and the same charges
     oplan, _ = build_plan(recursions, "float32", near_mode="otf",
@@ -1845,7 +1846,7 @@ def path_cached(recursions):
     rec["err_rel_diff"] = abs(otf1["err"] - cached1["err"]) / cached1["err"]
     rec["err_rel_diff_limit"] = OTF_SOLVE_ERR_REL_DIFF
     emit(rec)
-    phase_body_order(oplan, "cached_otf", "otf_tile", 5)
+    phase_override(oplan, "cached_otf", "otf_tile", 5)
     worst = max(rec["rel_max_diff"], rec["rel_max_diff_flipped"])
     if not worst <= rec["limit"]:
         fail("the on-the-fly matvec is not the cached matvec")
@@ -1901,7 +1902,7 @@ def path_otf(recursions):
         plan, n, chain=20, phase="otf_path", kernel="otf_tile",
         err1_limit=OTF_FIRST_KIND_ERR_LIMIT, baseline_p=10)
     phase_profile(plan, np.ones(n, np.float32), phase="otf_profile")
-    phase_body_order(plan, "otf", "otf_tile", 5)
+    phase_override(plan, "otf", "otf_tile", 5)
     del plan, store, ot, ql
     phase_otf_f64(recursions, n, main_rec, b1, b2)
     return [full, yukawa, full64, yukawa64], kernel_entry(
@@ -2015,7 +2016,7 @@ def path_points(npoints, nbase):
         fail(f"one apply launched {counts}: the point path did not go "
              "through p2p_tile once, and no other kernel")
     phase_profile(plan, q, phase="points_profile")
-    phase_body_order(plan, "points", "p2p_tile", 5)
+    phase_override(plan, "points", "p2p_tile", 5)
     phase_let_points(plan, q)
     return [full, full64], kernel_entry(
         "p2p_tile", "fmm_bem_tpu/ops/p2p_tile.py:180", full,
@@ -2210,7 +2211,7 @@ def path_stokes(recursions, chain=20, prefix="stokes"):
     u = np.tile([1.0, 0.0, 0.0], (n, 1)).astype(np.float32)
     phase_profile(plan, u, p=STOKES_P, phase=f"{prefix}_profile")
     phase_profile(plan, u, p=STOKES_P_MIN, phase=f"{prefix}_profile_p5")
-    phase_body_order(plan, prefix, "panel_contract", STOKES_P)
+    phase_override(plan, prefix, "panel_contract", STOKES_P)
     entry = kernel_entry(
         "panel_contract", "fmm_bem_tpu/ops/near_panel.py:626", full,
         main_rec["kernel_launches"],
@@ -2429,7 +2430,7 @@ def path_yukawa(recursions, small_recursions):
     ones = np.ones(n, np.float32)
     phase_profile(plan, ones, p=YUKAWA_P, phase="yukawa_profile")
     phase_profile(plan, ones, p=5, phase="yukawa_profile_p5")
-    phase_body_order(plan, "yukawa", "near_panel", YUKAWA_P)
+    phase_override(plan, "yukawa", "near_panel", YUKAWA_P)
     del plan, panels
     phase_yukawa_f64_full(recursions, solve, host)
     phase_yukawa_f64(small_recursions)
@@ -3130,13 +3131,13 @@ def phase_twins(laplace_recursions, small_recursions):
 
 
 # ----------------------------------------------------------------------
-# body order, dual trees, the COO replay, the point programs
+# field overrides, dual trees, the COO replay, the point programs
 # ----------------------------------------------------------------------
 
-#: the body-order matvec against the slot-order one on the same plan,
-#: order and charges, relative L2: the same operator, its sums in
-#: another order (f32)
-BODY_ORDER_LIMIT = 1e-5
+#: ``apply`` with explicit source and target fields against the plain
+#: ``apply`` on the same plan, order and charges, relative L2: the same
+#: operator (f32)
+OVERRIDE_LIMIT = 1e-5
 #: the dual BEM exterior potential against ``eval_exterior`` on 1,000
 #: sampled targets, relative L2: the JAX package's own bar
 #: (tests/test_dual_tree.py)
@@ -3170,12 +3171,12 @@ def no_kernel_counts():
     return dict.fromkeys(WRAPPERS, 0)
 
 
-def phase_body_order(plan, label, kernel, p, seed=21):
-    """One body-order ``apply`` (``apply_body_order``: charges in and
-    results out per body, ``FmmPlan._matvec``) on a plan of an earlier
-    path, against the slot-order ``apply`` on the same seeded charges;
-    the launches of the body-order run counted from 0 (its path's
-    kernel once, no other), both timed."""
+def phase_override(plan, label, kernel, p, seed=21):
+    """One ``apply`` with the plan's own source and target fields given
+    as overrides (``fields``, ``target_fields``) on a plan of an earlier
+    path, against the plain ``apply`` on the same seeded charges; the
+    launches of the override run counted from 0 (its path's kernel once,
+    no other), both timed.  Both run the slot-layout matvec."""
     n = plan.src.tree.num_bodies
     cdim = getattr(plan.kernel, "charge_dim", 1)
     rng = np.random.default_rng(seed)
@@ -3184,26 +3185,27 @@ def phase_body_order(plan, label, kernel, p, seed=21):
     want = plan.apply(q, p=p)
     torch.cuda.synchronize()
     reset_launch_counts()  # every kernel count, just before the run
-    got = plan.apply_body_order(q, p=p)
+    fields = {"fields": plan.src.fields, "target_fields": plan.tgt.fields}
+    got = plan.apply(q, p=p, **fields)
     torch.cuda.synchronize()
     counts = launch_counts()  # ... and read just after it
     rel = float((got - want).double().norm() / want.double().norm())
     rec = {
-        "phase": "body_order", "plan": label, "n_bodies": n, "p": p,
-        "rel_l2_diff_vs_slot_order": rel, "limit": BODY_ORDER_LIMIT,
+        "phase": "override", "plan": label, "n_bodies": n, "p": p,
+        "rel_l2_diff_vs_apply": rel, "limit": OVERRIDE_LIMIT,
         "kernel": kernel, "launch_counts": counts,
-        "body_order_ms": gpu_ms(
-            lambda: plan.apply_body_order(q, p=p), 3, 1, batches=1),
-        "slot_order_ms": gpu_ms(lambda: plan.apply(q, p=p), 3, 1, batches=1),
+        "override_ms": gpu_ms(
+            lambda: plan.apply(q, p=p, **fields), 3, 1, batches=1),
+        "apply_ms": gpu_ms(lambda: plan.apply(q, p=p), 3, 1, batches=1),
     }
     emit(rec)
     if got.shape != want.shape or not torch.isfinite(got).all():
-        fail(f"body order on the {label} plan: bad result")
-    if not rel <= BODY_ORDER_LIMIT:
-        fail(f"body order on the {label} plan differs from slot order by "
+        fail(f"the override on the {label} plan: bad result")
+    if not rel <= OVERRIDE_LIMIT:
+        fail(f"the override on the {label} plan differs from apply by "
              f"{rel:.3e}")
     if counts != matvec_counts(plan, **{kernel: 1}):
-        fail(f"body order on the {label} plan launched {counts}: not "
+        fail(f"the override on the {label} plan launched {counts}: not "
              f"{kernel} once, its M2P kernel as its matvec runs it, and "
              "no other kernel")
     return rec
@@ -3526,26 +3528,21 @@ def path_dual_bem_exterior(recursions, ntargets):
 
 
 def count_matvecs(plan, fn):
-    """Run ``fn()``, counting the matvecs ``plan`` runs in either layout
-    (``_matvec_slots``, ``_matvec``).  Returns (what ``fn`` returned,
-    matvecs)."""
+    """Run ``fn()``, counting the matvecs ``plan`` runs
+    (``_matvec_slots``).  Returns (what ``fn`` returned, matvecs)."""
     calls = {"matvecs": 0}
-    inners = {k: getattr(plan, k) for k in ("_matvec_slots", "_matvec")}
+    inner = plan._matvec_slots
 
-    def counted(inner):
-        def run(*a, **kw):
-            calls["matvecs"] += 1
-            return inner(*a, **kw)
-        return run
+    def counted(*a, **kw):
+        calls["matvecs"] += 1
+        return inner(*a, **kw)
 
-    for k, inner in inners.items():
-        setattr(plan, k, counted(inner))
+    plan._matvec_slots = counted
     try:
         out = fn()
         torch.cuda.synchronize()
     finally:
-        for k, inner in inners.items():
-            setattr(plan, k, inner)
+        plan._matvec_slots = inner
     return out, calls["matvecs"]
 
 
@@ -3567,7 +3564,7 @@ def phase_coo_replay(cached, fields, cached_solve, recursions):
     the full sphere built only where that predicts at most
     ``COO_FULL_HOST_BUDGET_S``; the drop tolerance at the 25th percentile
     of the entry magnitudes on the smaller sphere; the first-kind solve
-    (mode ``"device"``: the body-order operator) against the cached
+    (mode ``"device-slots"``: the slot operator) against the cached
     plan's; the Stokes COO plan against its panel plan."""
     small = recursions - 1
     sfields = make_panels(unit_sphere(small), K=3)
@@ -3645,7 +3642,7 @@ def phase_coo_replay(cached, fields, cached_solve, recursions):
                      "limit": STOKES_COO_LIMIT}
     del sp, scoo
     emit(rec)
-    if got["mode"] != "device" or not got["converged"]:
+    if got["mode"] != "device-slots" or not got["converged"]:
         fail(f"the COO solve ran mode {got['mode']}, converged "
              f"{got['converged']}")
     if abs(got["iterations"] - want["iterations"]) > 1:

@@ -28,20 +28,20 @@ ops on the plan's device:
           Each hand-written CUDA kernel runs on the GPU and its plain
           version on the CPU.
 
-The matvec runs in one of two layouts.  In the SLOT layout charges
-and results live in padded leaf tiles end to end (``_matvec_slots``,
-the solver's operator wherever the plan has one): scalar (Laplace BEM,
-point Laplace) or vector-valued (Stokes BEM with 3-vector charges and
-results, the point stokeslet): a kernel with ``charge_dim = c > 1``
-sees its charges as ``[n, c]`` and the solver vector as the flattened
-``[n*c]`` layout.  In BODY order (``_matvec``) charges come in and
-results go out per body, gathered into leaf tiles for the near pass and
-back: the layout of the plans without a slot operator — a dual-tree
-plan (``target_fields``: a distinct target set with its own tree in
-the sources' root box), the COO near-field replay
-(``near_panel=False``, with its ``droptol``), a kernel whose charge
-and result dimensions differ (the stresslet, point kernels with
-forces).  Kernels whose translations are not scale-invariant
+Every plan runs one matvec, in the SLOT layout: charges and results
+live in padded leaf tiles end to end (``_matvec_slots``), scalar
+(Laplace BEM, point Laplace) or vector-valued (Stokes BEM with 3-vector
+charges and results, the point stokeslet): a kernel with
+``charge_dim = c > 1`` sees its charges as ``[n, c]`` and the solver
+vector as the flattened ``[n*c]`` layout.  Charges are gathered into
+the source tree's tiles on entry and results out of the target tree's
+on exit, so a dual-tree plan (``target_fields``: a distinct target set
+with its own tree in the sources' root box) and a kernel whose charge
+and result dimensions differ (the stresslet) take the same path; the
+COO near-field replay (``near_panel=False``, with its ``droptol``)
+gathers the slot charges to body order for the kernel's
+``near_matvec`` and adds its rows back into the target slots.
+Kernels whose translations are not scale-invariant
 (the Yukawa kernels: kappa sets a length) get their M2M / L2L octant
 matrices and M2L class and family operators per level.  The treecode
 evaluator (``Evaluator.TREECODE``) replaces M2L / L2L / L2P by M2P from
@@ -120,6 +120,12 @@ def apply_flat_trans(rows, mat, ncomp):
         return rows @ mat.T
     n = rows.shape[0]
     return (rows.reshape(n * ncomp, W) @ mat.T).reshape(n, ncomp * W)
+
+
+def _flat(r):
+    """Result rows ``[n, rdim]`` -> the solver's flat vector: ``[n]``
+    for scalar results, the ``[n*rdim]`` flattening otherwise."""
+    return r[:, 0] if r.shape[1] == 1 else r.reshape(-1)
 
 
 def check_kernel(kernel, config):
@@ -1749,10 +1755,10 @@ class FmmPlan:
         return M
 
     def _matvec_slots(self, d, aux, sfields, tfields, q_t, p):
-        """Tile-resident matvec: charges and results live in the padded
-        leaf-slot layout (flattened [nl*K] tiles) end to end, so the
-        Krylov vectors need body<->slot conversions only at solve entry
-        and exit (``solver_ops_slots``):
+        """The FMM matvec (ref FMM_plan::execute), tile-resident: charges
+        and results live in the padded leaf-slot layout (flattened
+        [nl*K] tiles) end to end, so the Krylov vectors need body<->slot
+        conversions only at solve entry and exit (``_slot_ops``):
 
         - P2M consumes the slot-ordered linear table directly;
         - the near-field panels and the P2P / M2P leaf passes are
@@ -1760,13 +1766,17 @@ class FmmPlan:
           role);
         - L2P broadcasts each leaf's local expansion over its tile.
 
-        Padded slots stay exactly zero through every phase, so solver
-        dot products and norms need no masking.  ``q_t`` holds
-        ``nl*K*cdim`` charges (slot-major, the charge components of a
-        slot adjacent).  Returns [nl*K, rdim].
+        Sources are read in the source tree's tiles (``nl_s``, ``K_s``)
+        and results written in the target tree's (``nl_t``, ``K_t``), so
+        a dual plan runs the same phases.  Padded slots stay exactly
+        zero through every phase, so solver dot products and norms need
+        no masking.  ``q_t`` holds ``nl_s*K_s*cdim`` charges (slot-major,
+        the charge components of a slot adjacent).  Returns
+        [nl_t*K_t, rdim].
         """
         with log.span("matvec"):
-            cdim = getattr(self.kernel, "charge_dim", 1)
+            kern = self.kernel
+            cdim = getattr(kern, "charge_dim", 1)
             nl_s, K_s = len(self.src.leaf_ids), self.src.leaf_pad
             nl_t, K_t = len(self.tgt.leaf_ids), self.tgt.leaf_pad
 
@@ -1780,39 +1790,54 @@ class FmmPlan:
                     d["s_slot_mask"], q_t.reshape(nl_s * K_s), 0.0
                 )
 
-            if self.near_only:
-                # near-field-only operator (ref EvalLocalSparse /
-                # EvalDiagonalSparse): the near pass alone.  The
-                # reference computes P2M and M2M before its early return
-                # and lets its compiler drop them; eagerly they would
-                # run, so they are skipped here (the result is the same)
-                res_t = torch.zeros(
-                    (nl_t * K_t, self.kernel.result_dim), dtype=q_t.dtype,
-                    device=q_t.device,
-                )
-            else:
+            # a near-field-only operator (ref EvalLocalSparse /
+            # EvalDiagonalSparse) runs the near pass alone.  The
+            # reference computes P2M and M2M before its early return and
+            # lets its compiler drop them; eagerly they would run, so
+            # they are skipped here (the result is the same)
+            far = not self.near_only
+            if far:
                 with log.span("p2m"):
                     M = self._p2m_slots(d, aux, q_t, p)
                 with log.span("m2m"):
                     M = self._phase_m2m(d, M)
+            if far and self.config.evaluator == Evaluator.FMM:
                 with log.span("m2l"):
                     L = self._phase_m2l(d, M, p)
                 with log.span("l2l"):
                     L = self._phase_l2l(d, L)
                 with log.span("l2p"):
                     res_t = self._l2p_slots(d, aux, L, p)
-                if len(self.m2p_src):
-                    with log.span("m2p"):
-                        res_t = self._m2p_pass(
-                            d, aux, tfields, M, p, nl_t, K_t, res_t)
-            if self.near_rows is not None and "panels" in aux:
+            else:
+                # no local expansions: the treecode's far field is M2P
+                res_t = torch.zeros(
+                    (nl_t * K_t, kern.result_dim), dtype=q_t.dtype,
+                    device=q_t.device,
+                )
+            if far and len(self.m2p_src):
+                with log.span("m2p"):
+                    res_t = self._m2p_pass(
+                        d, aux, tfields, M, p, nl_t, K_t, res_t)
+            if self.near_rows is None:
+                if len(self.p2p_src_slot):
+                    with log.span("p2p"):
+                        res_t = res_t + self._p2p_pass(
+                            d, sfields, tfields, q_t, nl_t, K_t
+                        )
+            elif "panels" in aux:
                 with log.span("near"):
                     res_t = res_t + self._near_pass_slots(aux, q_t)
-            elif self.near_rows is None and len(self.p2p_src_slot):
-                with log.span("p2p"):
-                    res_t = res_t + self._p2p_pass(
-                        d, sfields, tfields, q_t, nl_t, K_t
+            elif len(self.near_rows):
+                # the COO replay (near_panel=False, droptol): the
+                # kernel's near_matvec on Morton-order charges, its
+                # target rows added into their slots
+                with log.span("near"):
+                    rows = kern.near_matvec(
+                        d["near_vals"], d["near_rows"], d["near_cols"],
+                        tfields, q_t[d["s_body_flat_slot"]],
+                        self.tgt.tree.num_bodies,
                     )
+                    res_t.index_add_(0, d["t_body_flat_slot"], rows)
             return res_t
 
     def _p2m_slots(self, d, aux, q_t, p):
@@ -1963,14 +1988,13 @@ class FmmPlan:
                 )
         return L
 
-    def _m2p_pass(self, d, aux, tfields, M, p, nl, K, res, slots=True):
+    def _m2p_pass(self, d, aux, tfields, M, p, nl, K, res):
         """Multipole evaluation at the target tiles of level-skewed
-        pairs (and the treecode's far boxes), added to ``res``: the
-        slot-layout result ``[nl*K, rdim]``, or (``slots=False``) the
-        target body rows.  Returns the sum.
+        pairs (and the treecode's far boxes), added to ``res``, the
+        slot-layout result ``[nl*K, rdim]``.  Returns the sum.
 
         A kernel with an M2P tile kernel runs it once over every pair,
-        adding into ``res`` in place on the slot route: its ``m2p_tile``
+        adding into ``res`` in place: its ``m2p_tile``
         marker names it, ``"m2p_tile"`` (Laplace BEM,
         ``ops/m2p_tile.py::m2p_tiles``) or ``"m2p_cart_tile"`` (Yukawa
         BEM, ``ops/m2p_cart_tile.py::m2p_cart_tiles``, at the kernel's
@@ -1982,8 +2006,7 @@ class FmmPlan:
         if route:
             log.count("m2p.kernel")
             tiles = d["m2p_tiles"]
-            out = res.contiguous() if slots else torch.zeros(
-                (nl * K, 1), dtype=M.dtype, device=M.device)
+            out = res.contiguous()
             args = (M, d["s_box_center"], tiles["leaves"], tiles["row_ptr"],
                     tiles["src"], tiles["isig"], tiles["cnt"], tiles["xyz"],
                     aux["m2p_bc"], out.view(nl, K), p)
@@ -1991,7 +2014,7 @@ class FmmPlan:
                 m2p_cart_tiles(*args, kern.kappa)
             else:
                 m2p_tiles(*args)
-            return out if slots else res + out[d["t_body_flat_slot"]]
+            return out
         log.count("m2p.eager")
         W = kern.width(p)
         txyz_lt = d["t_xyz"][d["t_leaf_body_idx"]]  # [nl, K, 3]
@@ -2027,8 +2050,6 @@ class FmmPlan:
             )
             seg.index_add_(0, tgt_slots, vals.reshape(P, K, -1))
         out = seg.reshape(nl * K, -1)
-        if not slots:
-            return res + out[d["t_body_flat_slot"]]
         # padded slots hold kernel values at dummy bodies — zero them
         return res + torch.where(d["t_slot_mask"][:, None], out, 0.0)
 
@@ -2080,139 +2101,6 @@ class FmmPlan:
         return out.permute(0, 2, 1).reshape(nl * K, 4)
 
     # ------------------------------------------------------------------
-    # the body-order matvec (plans without a slot operator)
-    # ------------------------------------------------------------------
-    def _leaf_tiles(self, d, qm):
-        """Morton-order charges [n(, cdim)] -> masked source leaf tiles
-        [nl_s, K_s*cdim], padded slots zero."""
-        qg = qm[d["s_leaf_body_idx"]]
-        mask = d["s_leaf_body_mask"]
-        if qg.ndim == 3:
-            qg = torch.where(mask[..., None], qg, 0.0)
-            return qg.reshape(qg.shape[0], -1)
-        return torch.where(mask, qg, 0.0)
-
-    def _phase_p2m(self, d, aux, sfields, qm, p):
-        """P2M from body-order charges (ref EvalInteractionLazy.hpp:
-        254-260, batched): the linear table where the kernel has one,
-        else the kernel's own ``p2m``; bodies summed per leaf tile, then
-        one row write of the nl leaf expansions into the box table."""
-        kern = self.kernel
-        cW = kern.ncomp * kern.width(p)
-        if "p2m_tab" in aux:
-            tab = aux["p2m_tab"]  # [n, cW] or [cdim, n, cW]
-            if qm.ndim == 1:
-                contrib = qm[:, None] * tab
-            else:
-                contrib = torch.einsum("nc,cnw->nw", qm, tab)
-        else:
-            contrib = kern.p2m(
-                sfields, qm, d["s_body_dnorm"], d["s_body_inv_sigma"], p
-            ).reshape(-1, cW)
-        ct = contrib[d["s_leaf_body_idx"]]
-        ct = torch.where(d["s_leaf_body_mask"][..., None], ct, 0.0)
-        M = torch.zeros(
-            (self.src.tree.num_boxes, cW), dtype=ct.dtype, device=ct.device
-        )
-        M[d["s_leaf_ids"]] = ct.sum(dim=1)
-        return M
-
-    def _phase_l2p(self, d, aux, tfields, L, p):
-        """L2P at the target bodies: the linear table where the kernel
-        has one, else the kernel's own ``l2p``."""
-        kern = self.kernel
-        Lb = L[d["t_body_leaf_box"]]
-        if "l2p_tab" in aux:
-            return torch.einsum("nw,nwr->nr", Lb, aux["l2p_tab"])
-        return kern.l2p(
-            tfields, Lb.reshape(-1, kern.ncomp, kern.width(p)),
-            d["t_body_dnorm"], d["t_body_inv_sigma"], p,
-        )
-
-    def _near_pass(self, d, aux, qm):
-        """Near field from body-order charges: gathered into source leaf
-        tiles, the panel product (or the on-the-fly one) per target
-        leaf, then back to target body rows."""
-        nl_t, K_t = len(self.tgt.leaf_ids), self.tgt.leaf_pad
-        ql = self._leaf_tiles(d, qm)
-        if "otf_tiles" in aux["panels"]:
-            out_leaf = self._near_otf_core(aux["panels"], ql)
-        else:
-            out_leaf = panel_matvec(aux["panels"], aux["near_meta"], ql)
-        return out_leaf.reshape(nl_t * K_t, self.kernel.result_dim)[
-            d["t_body_flat_slot"]
-        ]
-
-    def _matvec(self, d, aux, sfields, tfields, q, p):
-        """Body-order matvec (ref FMM_plan::execute): charges ``q``
-        [n_src(, cdim)] in user order -> results [n_tgt, rdim] in user
-        order.  The layout of the plans without a slot operator: dual
-        trees, the COO near-field replay, a BEM kernel whose charge and
-        result dimensions differ."""
-        with log.span("matvec"):
-            kern = self.kernel
-            nl_t, K_t = len(self.tgt.leaf_ids), self.tgt.leaf_pad
-            qm = q[d["s_perm"]]
-            res_m = torch.zeros(
-                (self.tgt.tree.num_bodies, kern.result_dim),
-                dtype=qm.dtype, device=qm.device,
-            )
-            if not self.near_only:
-                # a near-field-only operator skips the far field entirely
-                with log.span("p2m"):
-                    M = self._phase_p2m(d, aux, sfields, qm, p)
-                with log.span("m2m"):
-                    M = self._phase_m2m(d, M)
-                if self.config.evaluator == Evaluator.FMM:
-                    with log.span("m2l"):
-                        L = self._phase_m2l(d, M, p)
-                    with log.span("l2l"):
-                        L = self._phase_l2l(d, L)
-                    with log.span("l2p"):
-                        res_m = res_m + self._phase_l2p(
-                            d, aux, tfields, L, p)
-                if len(self.m2p_src):
-                    with log.span("m2p"):
-                        res_m = self._m2p_pass(
-                            d, aux, tfields, M, p, nl_t, K_t, res_m,
-                            slots=False,
-                        )
-            if self.near_rows is not None:
-                if "panels" in aux:
-                    with log.span("near"):
-                        res_m = res_m + self._near_pass(d, aux, qm)
-                elif len(self.near_rows):
-                    # the COO replay (near_panel=False, droptol)
-                    with log.span("near"):
-                        res_m = res_m + kern.near_matvec(
-                            d["near_vals"], d["near_rows"], d["near_cols"],
-                            tfields, qm, self.tgt.tree.num_bodies,
-                        )
-            elif len(self.p2p_src_slot):
-                with log.span("p2p"):
-                    out = self._p2p_pass(
-                        d, sfields, tfields,
-                        self._leaf_tiles(d, qm).reshape(-1), nl_t, K_t,
-                    )
-                    res_m = res_m + out[d["t_body_flat_slot"]]
-            # back to user order (inverse-permutation gather)
-            return res_m[d["t_inv_perm"]]
-
-    @property
-    def has_slot_route(self):
-        """Whether ``apply`` runs the slot-layout matvec: every plan but
-        a dual one, the COO replay and a BEM kernel whose charge and
-        result dimensions differ (those run in body order)."""
-        kern = self.kernel
-        coo = (
-            self.near_rows is not None and not self._use_panels
-            and len(self.near_rows) > 0
-        )
-        bem_nonsquare = getattr(kern, "near_sparse", False) and getattr(
-            kern, "charge_dim", 1) != kern.result_dim
-        return not (self.dual or coo or bem_nonsquare)
-
-    # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
     def solver_ops_slots(self, flipped=False):
@@ -2234,43 +2122,42 @@ class FmmPlan:
 
         ``flipped=True`` applies the BC-flipped operator (the
         reference's switch_BC system matrix, LaplaceBEM.cpp:218-232).
-        Returns ``None`` where the plan has no slot operator (a dual
-        plan, the COO replay) or no square one (charge and result
-        dimensions differ: a point kernel with forces); ``solver_ops``
-        is the body-order operator.
+        Returns ``None`` where the plan has no square operator: a dual
+        plan (its targets are not its sources) or a kernel whose charge
+        and result dimensions differ (the stresslet).
         """
         rdim = self.kernel.result_dim
-        if getattr(self.kernel, "charge_dim", 1) != rdim or not (
-            self.has_slot_route
-        ):
+        if self.dual or getattr(self.kernel, "charge_dim", 1) != rdim:
             return None
-        sfh = self._flipped_fields() if flipped else None
-        mv, op4p, to_s, from_s, nslots = self._slot_ops(sfh)
-
-        def flat(r):
-            return r[:, 0] if rdim == 1 else r.reshape(-1)
-
+        mv, op4p, to_s, from_s, nslots = self._slot_ops(
+            *(self._flipped_pair() if flipped else ()))
         return (
-            lambda operand, x, p: flat(mv(operand, x, p)),
-            op4p, to_s, lambda rt: flat(from_s(rt)), nslots,
+            lambda operand, x, p: _flat(mv(operand, x, p)),
+            op4p, to_s, lambda rt: _flat(from_s(rt)), nslots,
         )
 
-    def _slot_ops(self, fields_host):
+    def _slot_ops(self, src_host=None, tgt_host=None):
         """The slot-space operator with full result rows:
-        ``matvec -> [nl*K, rdim]``, ``from_slots -> [n, rdim]``;
+        ``matvec -> [nl_t*K_t, rdim]``, ``from_slots -> [n_tgt, rdim]``;
         ``to_slots`` takes ``[n]`` (``[n, cdim]`` or its flattening for
-        vector charges) and gives the flat ``[nl*K*cdim]`` slot vector."""
+        vector charges) and gives the flat ``[nl_s*K_s*cdim]`` slot
+        vector.  ``src_host`` / ``tgt_host`` override the host fields
+        (Morton order) of the sources and the targets; on a single tree
+        the targets take the sources' unless given their own."""
+        if tgt_host is None and not self.dual:
+            tgt_host = src_host
         cdim = getattr(self.kernel, "charge_dim", 1)
         nl_s, K_s = len(self.src.leaf_ids), self.src.leaf_pad
         n = self.src.tree.num_bodies
-        sf = self.device_fields(fields_host)
+        sf = self.device_fields(src_host, "src")
+        tf = self.device_fields(tgt_host, "tgt")
 
         def operand_for_p(p):
             p = min(int(p), self.config.max_p)
             aux = self.variant_aux_slots(
-                p, src_host=fields_host, tgt_host=fields_host
+                p, src_host=src_host, tgt_host=tgt_host
             )
-            return (self.device_data(p), aux, sf, sf)
+            return (self.device_data(p), aux, sf, tf)
 
         def matvec(operand, x, p):
             d, aux, sfo, tfo = operand
@@ -2309,42 +2196,29 @@ class FmmPlan:
         return matvec, operand_for_p, to_slots, from_slots, nl_s * K_s * cdim
 
     def solver_ops(self, flipped=False):
-        """Body-order operator form for the device-resident solver
-        (``gmres_device``): returns ``(matvec, operand_for_p)`` with
-        ``matvec(operand, x, p) -> A @ x`` on the flattened ``[n*c]``
-        user-order vector (ref GMRES_Stokes.hpp VecToArray/ArrayToVec
-        :85-110) and ``operand_for_p(p)`` the per-order device tables.
-        ``flipped=True`` applies the BC-flipped operator (the
+        """User-order operator form (the JAX package's ``solver_ops``):
+        returns ``(matvec, operand_for_p)`` with ``matvec(operand, x, p)
+        -> A @ x`` on the flattened ``[n*c]`` user-order vector (ref
+        GMRES_Stokes.hpp VecToArray/ArrayToVec :85-110) and
+        ``operand_for_p(p)`` the per-order device tables: the slot
+        matvec with the charges gathered in and the results out around
+        it.  ``flipped=True`` applies the BC-flipped operator (the
         reference's switch_BC system matrix, LaplaceBEM.cpp:218-232) on
         both sides of a dual plan."""
-        rdim = self.kernel.result_dim
-        cdim = getattr(self.kernel, "charge_dim", 1)
-        sfh, tfh = self._flipped_pair() if flipped else (None, None)
-        sf = self.device_fields(sfh, "src")
-        tf = self.device_fields(tfh, "tgt") if self.dual else sf
-
-        def operand_for_p(p):
-            p = min(int(p), self.config.max_p)
-            aux = self.variant_aux(p, src_host=sfh, tgt_host=tfh)
-            return (self.device_data(p), aux, sf, tf)
+        mv, op4p, to_s, from_s, _ = self._slot_ops(
+            *(self._flipped_pair() if flipped else ()))
 
         def matvec(operand, x, p):
-            d, aux, sfo, tfo = operand
-            q = x if cdim == 1 else x.reshape(-1, cdim)
-            out = self._matvec(
-                d, aux, sfo, tfo, q, min(int(p), self.config.max_p)
-            )
-            return out[:, 0] if rdim == 1 else out.reshape(-1)
+            return _flat(from_s(mv(operand, to_s(x), p)))
 
-        return matvec, operand_for_p
+        return matvec, op4p
 
     def apply(self, charges, p=None, fields=None, target_fields=None):
         """One FMM matvec at truncation order ``p`` (ref
         FMM_plan::execute, FMM_plan.hpp:75-90 + the set_p relaxation
         hook): charges [n] (or [n, cdim]) in user order -> result
         [n_tgt, rdim] tensor on the plan's device, through the
-        slot-space matvec where the plan has one (``has_slot_route``),
-        else in body order.
+        slot-space matvec.
 
         ``fields`` / ``target_fields`` override the per-body arrays at
         call time (already in Morton order) — e.g. flipped BC flags to
@@ -2354,48 +2228,13 @@ class FmmPlan:
         with log.span("apply"):
             p = int(p if p is not None else self.config.max_p)
             p = min(p, self.config.max_p)
-            if not (self.has_slot_route and (
-                target_fields is None or target_fields is fields
-            )):
-                return self._apply_body_order(charges, p, fields,
-                                              target_fields)
             with log.span("apply.entry"):
-                mv, op4p, to_s, from_s, _ = self._slot_ops(fields)
+                mv, op4p, to_s, from_s, _ = self._slot_ops(
+                    fields, target_fields)
                 operand, q_t = op4p(p), to_s(charges)
             res_t = mv(operand, q_t, p)
             with log.span("apply.exit"):
                 return from_s(res_t)
-
-    def apply_body_order(self, charges, p=None, fields=None,
-                         target_fields=None):
-        """``apply`` through the body-order matvec (``_matvec``) on any
-        plan: the route of the plans without a slot operator, and on the
-        others the same operator in the other layout."""
-        with log.span("apply"):
-            return self._apply_body_order(charges, p, fields, target_fields)
-
-    def _apply_body_order(self, charges, p, fields, target_fields):
-        """The body of ``apply_body_order``, without its span."""
-        p = min(int(p if p is not None else self.config.max_p),
-                self.config.max_p)
-        with log.span("apply.entry"):
-            host_tgt = target_fields if target_fields is not None else (
-                fields if not self.dual else None)
-            aux = self.variant_aux(p, src_host=fields, tgt_host=host_tgt)
-            sf = self.device_fields(fields, "src")
-            tf = (
-                self.device_fields(host_tgt, "tgt")
-                if self.dual or target_fields is not None else sf
-            )
-            q = torch.as_tensor(
-                np.array(charges) if isinstance(charges, np.ndarray)
-                else charges, dtype=self.dtype, device=self.device,
-            )
-            cdim = getattr(self.kernel, "charge_dim", 1)
-            n = self.src.tree.num_bodies
-            q = q.reshape(n) if cdim == 1 else q.reshape(n, cdim)
-            d = self.device_data(p)
-        return self._matvec(d, aux, sf, tf, q, p)
 
     def calibrate_eps(self, q=None, ps=None, seed=0):
         """Measure the matvec truncation-error decay eps(p) and fit

@@ -4,9 +4,7 @@ The reference's example programs call GMRES with the plan's matvec
 (examples/LaplaceBEM.cpp:281-291).  ``solve_plan`` runs by default the
 device-resident solver on the plan's slot-space operator: the Krylov
 vectors stay in the padded leaf-tile layout on the plan's device, and
-the solution comes back in user ordering.  A plan without a slot
-operator (a dual plan, the COO near-field replay) runs the same solver
-on its body-order operator (``solver_ops``).  ``prefer_device=False``
+the solution comes back in user ordering.  ``prefer_device=False``
 runs the host loop instead (``gmres`` / ``fgmres``: Hessenberg and
 Givens state in numpy f64) around ``plan.apply`` in user order; the
 matvec still runs on the plan's device.
@@ -49,8 +47,7 @@ def solve_plan(
 ):
     """Solve ``A x = b`` where A is the plan's (optionally BC-flipped)
     operator.  Returns ``(x, info, mode)`` with x a numpy array in user
-    ordering and mode ``"device-slots"``, ``"device"`` (the body-order
-    operator of a plan without a slot operator) or ``"host"``.
+    ordering and mode ``"device-slots"`` or ``"host"``.
 
     M_diag : optional diagonal-preconditioner entries (user order,
         flattened [n*cdim]); applied as ``z = r / M_diag`` on both
@@ -88,16 +85,13 @@ def solve_plan(
             )
         with log.span("solve.entry"):
             ops = plan.solver_ops_slots(flipped=flipped)
-            if ops is not None:
-                mv, op4p, to_s, from_s, _ = ops
-                mode = "device-slots"
-            else:
-                # no slot operator: the body-order one, in user order
-                mv, op4p = plan.solver_ops(flipped=flipped)
-                to_s = lambda v: torch.as_tensor(  # noqa: E731
-                    np.array(v), dtype=plan.dtype, device=plan.device)
-                from_s = lambda v: v  # noqa: E731
-                mode = "device"
+            if ops is None:
+                raise ValueError(
+                    "solve_plan: a dual plan maps its sources to another "
+                    "set of targets; there is no square operator to solve "
+                    "with"
+                )
+            mv, op4p, to_s, from_s, _ = ops
             Mfn = None
             if M_diag is not None:
                 dslot = to_s(1.0 / np.asarray(M_diag))
@@ -117,7 +111,7 @@ def solve_plan(
         )
         with log.span("solve.exit"):
             log.count("host_syncs")
-            return from_s(x).cpu().numpy(), info, mode
+            return from_s(x).cpu().numpy(), info, "device-slots"
 
 
 def _solve_host(plan, b, cfg, *, flipped, p_fixed, M_diag, flexible,

@@ -163,9 +163,8 @@ def measure(plan, build_s, p=5, iters=10, chain=50):
     near_equiv = None
     aux = plan.variant_aux(p)
     if dev.type == "cuda" and "A" in aux.get("panels", {}):
-        d = plan.device_data(p)
-        qm = torch.as_tensor(ones, device=dev)[d["s_perm"]]
-        ql = plan._leaf_tiles(d, qm)
+        to_slots = plan._slot_ops()[2]
+        ql = to_slots(ones).reshape(len(plan.src.leaf_ids), -1)
         got = panel_matvec(aux["panels"], aux["near_meta"], ql)
         want = panel_matvec_reference(aux["panels"], aux["near_meta"], ql)
         near_equiv = float(

@@ -1,6 +1,6 @@
 """The COO near-field replay of the PyTorch port (``near_panel=False``:
 every near entry kept as (row, col, value) and replayed by the kernel's
-``near_matvec`` in the body-order matvec) and its drop tolerance,
+``near_matvec`` inside the slot-layout matvec) and its drop tolerance,
 against the JAX package, on the CPU at f64.  Inputs are made with numpy
 from a seed and handed to both packages.
 
@@ -12,9 +12,10 @@ from a seed and handed to both packages.
 - ``droptol`` at the 25th percentile of the entry magnitudes (the case
   of tests/test_plan.py): the kept fraction in (0.5, 0.9), the matvec
   changed by a relative (0, 0.5), the kept entries the JAX plan's.
-- ``solve_plan`` on a COO plan runs the device solver on the body-order
-  operator (mode ``"device"``) with the JAX package's iteration count
-  and order schedule, the solution to 1e-9.
+- ``solve_plan`` on a COO plan runs the device solver on the slot
+  operator (mode ``"device-slots"``; the JAX package's mode
+  ``"device"``) with the JAX package's iteration count and order
+  schedule, the solution to 1e-9.
 """
 
 import dataclasses
@@ -79,9 +80,9 @@ def coo_plans(request):
 
 def test_coo_matches_panel_plan(coo_plans):
     name, q, tpanel, tcoo, _ = coo_plans
-    assert not tcoo._use_panels and not tcoo.has_slot_route
+    assert not tcoo._use_panels
     assert len(tcoo.lists.m2l_pairs) > 0
-    assert tcoo.solver_ops_slots() is None
+    assert tcoo.solver_ops_slots() is not None
     for p in (3, 5):
         a = npy(tpanel.apply(q, p=p))
         b = npy(tcoo.apply(q, p=p))
@@ -147,7 +148,7 @@ def test_solve_plan_on_coo_is_device_mode(tiers):
     xj, ij, mj = j_solve_plan(jp, b, J.SolverConfig(
         **dataclasses.asdict(jcfg)), prefer_device=True)
     xt, it, mt = solve_plan(tp, b, scfg)
-    assert mj == mt == "device"
+    assert mj == "device" and mt == "device-slots"
     assert ij.converged and it.converged
     assert it.iterations == ij.iterations
     assert [h[2] for h in it.history] == [h[2] for h in ij.history]

@@ -12,7 +12,7 @@ Inputs are made with numpy from a seed and handed to both packages.
 - The dual plans' interaction lists and both sides' leaf tables, array
   for array.
 - ``apply`` and ``apply_flipped_bc`` of the dual BEM plan against the
-  JAX plan; no slot operator (``solver_ops_slots() is None``).
+  JAX plan; no square operator (``solver_ops_slots() is None``).
 - The dual plan with the on-the-fly near field and unequal leaf pads
   (``K_t != K_s``: both sides packed at the wider one) against the JAX
   package's XLA path of the same plan and against the cached dual plan.
@@ -172,7 +172,6 @@ def test_dual_apply_and_flipped_match_jax(bem_exterior, p):
     assert rel(tp.apply_flipped_bc(q, p=p),
                jp.apply_flipped_bc(q, p=p)) <= TOL
     assert tp.solver_ops_slots() is None
-    assert not tp.has_slot_route
 
 
 @pytest.fixture(scope="module")

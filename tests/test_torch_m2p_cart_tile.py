@@ -6,8 +6,8 @@ which the plan's ``_m2p_pass`` takes for a ``YukawaBEMKernel`` (its
 ``m2p_tile`` marker names ``m2p_cart_tile``), against the eager pass
 every other kernel keeps (the marker switched off on the instance), on a
 plan with level-skewed pairs: orders 1 to 8, both BC variants and a
-mixed one, the slot and the body-order route; whole matvecs and a
-relaxed solve; bad tables; the wrapper's checks; and a model of the
+mixed one, added into a seeded result and into zeros; whole matvecs
+and a relaxed solve; bad tables; the wrapper's checks; and a model of the
 kernel's walk (one degree shell at a time, each term's parents at fixed
 offsets, the scale-free form) against the eager Taylor weights.  The
 tests marked ``card`` hold the CUDA kernel to the plain version on the
@@ -101,34 +101,30 @@ def pass_inputs(plan, p, variant, seed=3):
     return d, aux, tf, M, len(plan.tgt.leaf_ids), plan.tgt.leaf_pad
 
 
-@pytest.mark.parametrize("route", ["slots", "body"])
+@pytest.mark.parametrize("start", ["given", "zero"])
 @pytest.mark.parametrize("variant", VARIANTS)
 @pytest.mark.parametrize("p", ORDERS)
-def test_pass_matches_the_eager_pass(skewed, p, variant, route):
+def test_pass_matches_the_eager_pass(skewed, p, variant, start):
     """``_m2p_pass`` through ``m2p_cart_tiles`` (the plain version on the
     CPU) gives the eager ``YukawaBEMKernel.m2p`` pass's sums to 1e-12,
-    added to the result it is given; on the slot route in place, with
-    padded slots left exactly 0."""
+    added in place to the slot result it is given (seeded, as an FMM
+    matvec's L2P rows, or zeros, as a treecode's), with padded slots left
+    exactly 0."""
     plan = skewed
     d, aux, tf, M, nl, K = pass_inputs(plan, p, variant)
     rng = np.random.default_rng(9)
-    slots = route == "slots"
-    if slots:
-        res = torch.as_tensor(rng.standard_normal((nl * K, 1))) * \
-            d["t_slot_mask"][:, None]
-    else:
-        res = torch.as_tensor(
-            rng.standard_normal((plan.tgt.tree.num_bodies, 1)))
+    res = torch.as_tensor(rng.standard_normal((nl * K, 1))) * \
+        d["t_slot_mask"][:, None]
+    if start == "zero":
+        res = torch.zeros_like(res)
     with eager(plan):
-        want = plan._m2p_pass(d, aux, tf, M, p, nl, K, res.clone(),
-                              slots=slots)
+        want = plan._m2p_pass(d, aux, tf, M, p, nl, K, res.clone())
     given = res.clone()
-    got = plan._m2p_pass(d, aux, tf, M, p, nl, K, given, slots=slots)
+    got = plan._m2p_pass(d, aux, tf, M, p, nl, K, given)
     assert rel(got - res, want - res) <= 1e-12
     assert rel(got, want) <= 1e-12
-    if slots:
-        assert got.data_ptr() == given.data_ptr()
-        assert bool((got[~d["t_slot_mask"]] == 0).all())
+    assert got.data_ptr() == given.data_ptr()
+    assert bool((got[~d["t_slot_mask"]] == 0).all())
     body = d["t_leaf_body_idx"][d["m2p_tiles"]["leaves"].long()]
     assert torch.equal(aux["m2p_bc"], tf["bc"][body])
 
@@ -445,8 +441,9 @@ def test_smem_bytes_is_the_library_s(card):
 
 @pytest.mark.card
 def test_kernel_launches_once_a_matvec_on_the_card(card):
-    """On the card a Yukawa BEM matvec launches the kernel once, its slot
-    and body-order results match the plain route on the CPU, and the
+    """On the card a Yukawa BEM matvec launches the kernel once, its
+    results (the plain and the flipped operator and a target-field
+    override) match the plain route on the CPU, and the
     eager route never runs."""
     plan = skewed_plan(device=card)
     cpu = skewed_plan()
@@ -456,7 +453,13 @@ def test_kernel_launches_once_a_matvec_on_the_card(card):
                                       plan.apply_flipped_bc(q, p=5)))
     assert mc.m2p_cart_tiles.launches - before == 2
     assert counts.get("m2p.kernel") == 2 and "m2p.eager" not in counts
-    for fn in ("apply", "apply_flipped_bc", "apply_body_order"):
-        got = getattr(plan, fn)(q, p=MAX_P).cpu()
-        want = getattr(cpu, fn)(q, p=MAX_P)
-        assert rel(got, want) <= 1e-12, fn
+
+    def runs(pl):
+        return {"apply": pl.apply(q, p=MAX_P),
+                "apply_flipped_bc": pl.apply_flipped_bc(q, p=MAX_P),
+                "target_fields": pl.apply(
+                    q, p=MAX_P, target_fields=pl._flipped_fields())}
+
+    want = runs(cpu)
+    for fn, got in runs(plan).items():
+        assert rel(got.cpu(), want[fn]) <= 1e-12, fn

@@ -5,8 +5,8 @@ On the CPU, in f64: the plain version ``m2p_tiles_reference``, which the
 plan's ``_m2p_pass`` takes for a ``LaplaceBEMKernel`` (its ``m2p_tile``
 marker), against the eager pass every other kernel keeps (the marker
 switched off on the instance), on a plan with level-skewed pairs: every
-order, both BC variants and a mixed one, the slot and the body-order
-route; whole matvecs and a relaxed solve; the tables of an operand
+order, both BC variants and a mixed one, added into a seeded result and
+into zeros; whole matvecs and a relaxed solve; the tables of an operand
 carried across from numpy; a plan without M2P pairs; the counters of
 the two routes; bad tables; the wrapper's checks.  The tests marked ``card``
 hold the CUDA kernel to the plain version on the card and skip without
@@ -104,34 +104,29 @@ def pass_inputs(plan, p, variant, seed=3):
     return d, aux, tf, M, len(plan.tgt.leaf_ids), plan.tgt.leaf_pad
 
 
-@pytest.mark.parametrize("route", ["slots", "body"])
+@pytest.mark.parametrize("start", ["given", "zero"])
 @pytest.mark.parametrize("variant", VARIANTS)
 @pytest.mark.parametrize("p", ORDERS)
-def test_pass_matches_the_eager_pass(skewed, p, variant, route):
+def test_pass_matches_the_eager_pass(skewed, p, variant, start):
     """``_m2p_pass`` through ``m2p_tiles`` (the plain version on the CPU)
-    gives the eager pass's sums to 1e-12, added to the result it is
-    given; on the slot route in place, with padded slots left exactly
-    0."""
+    gives the eager pass's sums to 1e-12, added in place to the slot
+    result it is given (seeded, as an FMM matvec's L2P rows, or zeros, as
+    a treecode's), with padded slots left exactly 0."""
     plan = skewed
     d, aux, tf, M, nl, K = pass_inputs(plan, p, variant)
     rng = np.random.default_rng(9)
-    slots = route == "slots"
-    if slots:
-        res = torch.as_tensor(rng.standard_normal((nl * K, 1))) * \
-            d["t_slot_mask"][:, None]
-    else:
-        res = torch.as_tensor(
-            rng.standard_normal((plan.tgt.tree.num_bodies, 1)))
+    res = torch.as_tensor(rng.standard_normal((nl * K, 1))) * \
+        d["t_slot_mask"][:, None]
+    if start == "zero":
+        res = torch.zeros_like(res)
     with eager(plan):
-        want = plan._m2p_pass(d, aux, tf, M, p, nl, K, res.clone(),
-                              slots=slots)
+        want = plan._m2p_pass(d, aux, tf, M, p, nl, K, res.clone())
     given = res.clone()
-    got = plan._m2p_pass(d, aux, tf, M, p, nl, K, given, slots=slots)
+    got = plan._m2p_pass(d, aux, tf, M, p, nl, K, given)
     assert rel(got - res, want - res) <= 1e-12
     assert rel(got, want) <= 1e-12
-    if slots:
-        assert got.data_ptr() == given.data_ptr()
-        assert bool((got[~d["t_slot_mask"]] == 0).all())
+    assert got.data_ptr() == given.data_ptr()
+    assert bool((got[~d["t_slot_mask"]] == 0).all())
     # the variant's BC tile is its target slots' flags
     body = d["t_leaf_body_idx"][d["m2p_tiles"]["leaves"].long()]
     assert torch.equal(aux["m2p_bc"], tf["bc"][body])
@@ -258,7 +253,8 @@ def profiled_counts(fn):
 @pytest.mark.parametrize("kernel", ["laplace_bem", "yukawa_bem",
                                     "unmarked"])
 def test_which_route_runs(kernel, monkeypatch):
-    """Each ``_m2p_pass`` counts its route: ``m2p.kernel`` on a Laplace BEM
+    """Each ``_m2p_pass`` counts its route, on the plain operator and on a
+    target-field override: ``m2p.kernel`` on a Laplace BEM
     plan and on a Yukawa BEM plan (one a matvec, ``m2p.eager`` never),
     each through the wrapper its kernel's marker names and never the
     other; a kernel without the marker (the Yukawa BEM plan's kernel
@@ -284,8 +280,9 @@ def test_which_route_runs(kernel, monkeypatch):
 
         monkeypatch.setattr(plan_mod, name, counted)
     q = np.random.default_rng(2).standard_normal(plan.src.tree.num_bodies)
-    counts = profiled_counts(lambda: (plan.apply(q, p=4),
-                                      plan.apply_body_order(q, p=4)))
+    counts = profiled_counts(lambda: (
+        plan.apply(q, p=4),
+        plan.apply(q, p=4, target_fields=plan._flipped_fields())))
     route = "m2p.eager" if kernel == "unmarked" else "m2p.kernel"
     other = "m2p.kernel" if kernel == "unmarked" else "m2p.eager"
     assert counts.get(route) == 2 and other not in counts
@@ -426,7 +423,8 @@ def test_kernel_matches_plain_on_the_card(card, dtype, tol):
 @pytest.mark.card
 def test_kernel_launches_once_a_matvec_on_the_card(card):
     """On the card a Laplace BEM matvec launches the kernel once, its
-    slot and body-order results match the plain route on the CPU, and
+    results (the plain and the flipped operator and a target-field
+    override) match the plain route on the CPU, and
     the eager route never runs."""
     plan = skewed_plan(device=card, dtype="float64")
     cpu = skewed_plan()
@@ -436,7 +434,13 @@ def test_kernel_launches_once_a_matvec_on_the_card(card):
                                       plan.apply_flipped_bc(q, p=5)))
     assert mt.m2p_tiles.launches - before == 2
     assert counts.get("m2p.kernel") == 2 and "m2p.eager" not in counts
-    for fn in ("apply", "apply_flipped_bc", "apply_body_order"):
-        got = getattr(plan, fn)(q, p=10).cpu()
-        want = getattr(cpu, fn)(q, p=10)
-        assert rel(got, want) <= 1e-12, fn
+
+    def runs(pl):
+        return {"apply": pl.apply(q, p=10),
+                "apply_flipped_bc": pl.apply_flipped_bc(q, p=10),
+                "target_fields": pl.apply(
+                    q, p=10, target_fields=pl._flipped_fields())}
+
+    want = runs(cpu)
+    for fn, got in runs(plan).items():
+        assert rel(got.cpu(), want[fn]) <= 1e-12, fn

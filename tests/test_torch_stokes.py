@@ -680,8 +680,8 @@ def test_stresslet_through_the_plan():
     """``FmmPlan(StressletKernel())``: no linear P2M table (the kernel's
     own ``p2m`` runs per matvec on the slot-gathered fields), 6-vector
     charges and 3-vector results; against the JAX plan (1e-12), direct
-    summation (5e-4, the bar of the JAX package's own test) and its own
-    body-order matvec (1e-12)."""
+    summation (5e-4, the bar of the JAX package's own test) and, as a
+    target-field override, the JAX plan's override (1e-12)."""
     rng = np.random.default_rng(5)
     n = 1200
     pts = rng.uniform(0, 1, (n, 3))
@@ -697,16 +697,18 @@ def test_stresslet_through_the_plan():
     exact = tplan.kernel.direct(
         torch.as_tensor(pts), torch.as_tensor(pts), torch.as_tensor(q))
     assert rel(got, exact) < 5e-4
-    assert rel(tplan.apply_body_order(q, p=10), got) <= TOL
+    tf = tplan.src.fields
+    assert rel(tplan.apply(q, p=10, target_fields=tf),
+               jplan.apply(q, p=10, target_fields=jplan.src.fields)) <= TOL
 
 
 @pytest.mark.parametrize("near_panel", [True, False],
-                         ids=["slot_route", "coo_body_order"])
+                         ids=["slot_route", "coo_replay"])
 def test_nonlinear_p2m_instance(near_panel):
     """A Laplace BEM kernel instance with ``linear_p2m = False`` (as in
     the JAX package's tests/test_ops.py): no P2M table, the kernel's own
-    ``p2m`` per matvec — in the slot route (cached panels) and in body
-    order (the COO replay) — gives the table plan's matvec (1e-11) and
+    ``p2m`` per matvec — with the cached panels and with the COO
+    replay — gives the table plan's matvec (1e-11) and
     the JAX plan's (1e-12)."""
     from fmm_bem_tpu.kernels.laplace_bem import LaplaceBEMKernel as JLB
     from fmm_bem_tpu_torch.kernels.laplace_bem import LaplaceBEMKernel as TLB
@@ -722,7 +724,6 @@ def test_nonlinear_p2m_instance(near_panel):
     tp = T.FmmPlan(tk, fields, T.FMMConfig(**cfg), device="cpu")
     jp = J.FmmPlan(jk, fields, J.FMMConfig(**cfg))
     assert "p2m_tab" not in tp.variant_aux(5)
-    assert tp.has_slot_route == near_panel
     got = tp.apply(q, p=5)
     assert (got - table.apply(q, p=5)).abs().max() <= 1e-11
     assert rel(got, jp.apply(q, p=5)) <= TOL

@@ -104,11 +104,10 @@ PHASES = {
 def test_phase_spans_are_the_matvec(case):
     """Under the profiler, an apply opens one ``apply`` span with one
     ``matvec`` under it, whose leaf spans are the phases the plan's
-    matvec runs, in order: ``_matvec_slots`` on every plan with a slot
-    route (M2P and family M2L, the OTF tiles, the Stokes two-stage
-    store, the point P2P, the near-only operator, both BC variants),
-    ``_matvec`` on the COO replay.  The traced result is bit-identical
-    to the untraced one."""
+    matvec runs, in order: M2P and family M2L, the OTF tiles, the Stokes
+    two-stage store, the point P2P, the near-only operator, both BC
+    variants, the COO replay.  The traced result is bit-identical to the
+    untraced one."""
     plan, flipped = phase_case(case)
     n = plan.src.tree.num_bodies
     cdim = getattr(plan.kernel, "charge_dim", 1)
@@ -274,18 +273,15 @@ def test_span_buffer_is_bounded():
 
 
 def test_apply_without_slot_route_opens_one_apply_span():
-    """``apply`` on a plan without a slot route goes through
-    ``apply_body_order``: one ``apply`` span, not two."""
+    """``apply`` on the COO replay opens one ``apply`` span with one
+    ``apply.entry`` and one ``apply.exit``, as on every other plan."""
     plan, _ = phase_case("coo")
-    assert not plan.has_slot_route
+    assert not plan._use_panels and len(plan.near_rows) > 0
     n = plan.src.tree.num_bodies
     traced(lambda: plan.apply(np.ones(n), p=5))
     names = [s[0] for s in log.spans()]
-    assert names.count("apply") == 1 and names.count("apply.entry") == 1
-    assert "apply.exit" not in names
-    log.clear_spans()
-    traced(lambda: plan.apply_body_order(np.ones(n), p=5))
-    assert [s[0] for s in log.spans()].count("apply") == 1
+    assert [names.count(k) for k in ("apply", "apply.entry", "apply.exit")
+            ] == [1, 1, 1]
 
 
 def test_chrome_trace_holds_the_program_spans(tmp_path, bem_plan):
