@@ -72,6 +72,7 @@ import numpy as np
 import torch
 
 from fmm_bem_tpu_torch.config import Evaluator, FMMConfig
+from fmm_bem_tpu_torch.executor.graphs import EAGER, GraphPool, phases_for
 from fmm_bem_tpu_torch.ops import _build
 from fmm_bem_tpu_torch.ops.bucket_sum import bucket_sum_apply, build_bucket_sum
 from fmm_bem_tpu_torch.ops.m2p_cart_tile import m2p_cart_tiles
@@ -495,6 +496,8 @@ class FmmPlan:
         self._l2p_tab_cache = {}
         self._flipped_host = None
         self._slot_maps = None
+        # the memory pool of the matvec's CUDA graphs (executor/graphs.py)
+        self._graph_pool = GraphPool()
 
     @staticmethod
     def _single_tree(src_xyz, cfg):
@@ -1780,34 +1783,35 @@ class FmmPlan:
             nl_s, K_s = len(self.src.leaf_ids), self.src.leaf_pad
             nl_t, K_t = len(self.tgt.leaf_ids), self.tgt.leaf_pad
 
-            if cdim > 1:
-                q_t = torch.where(
-                    d["s_slot_mask"][:, None],
-                    q_t.reshape(nl_s * K_s, cdim), 0.0,
-                )
-            else:
-                q_t = torch.where(
-                    d["s_slot_mask"], q_t.reshape(nl_s * K_s), 0.0
-                )
-
             # a near-field-only operator (ref EvalLocalSparse /
             # EvalDiagonalSparse) runs the near pass alone.  The
             # reference computes P2M and M2M before its early return and
             # lets its compiler drop them; eagerly they would run, so
             # they are skipped here (the result is the same)
             far = not self.near_only
+            # the far-field phases: replayed from the operand's CUDA
+            # graphs on a card, eager on the CPU (executor/graphs.py)
+            ph = (phases_for(aux, d, self._graph_pool)
+                  if far and q_t.is_cuda else EAGER)
+            if cdim > 1:
+                q_t = ph.charges(q_t.reshape(nl_s * K_s, cdim),
+                                 d["s_slot_mask"][:, None])
+            else:
+                q_t = ph.charges(q_t.reshape(nl_s * K_s), d["s_slot_mask"])
             if far:
                 with log.span("p2m"):
-                    M = self._p2m_slots(d, aux, q_t, p)
+                    M = ph.run(
+                        "p2m", lambda q: self._p2m_slots(d, aux, q, p), q_t)
                 with log.span("m2m"):
-                    M = self._phase_m2m(d, M)
+                    M = ph.run("m2m", lambda m: self._phase_m2m(d, m), M)
             if far and self.config.evaluator == Evaluator.FMM:
                 with log.span("m2l"):
-                    L = self._phase_m2l(d, M, p)
+                    L = ph.run("m2l", lambda m: self._phase_m2l(d, m, p), M)
                 with log.span("l2l"):
-                    L = self._phase_l2l(d, L)
+                    L = ph.run("l2l", lambda l: self._phase_l2l(d, l), L)
                 with log.span("l2p"):
-                    res_t = self._l2p_slots(d, aux, L, p)
+                    res_t = ph.run(
+                        "l2p", lambda l: self._l2p_slots(d, aux, l, p), L)
             else:
                 # no local expansions: the treecode's far field is M2P
                 res_t = torch.zeros(
@@ -1838,7 +1842,8 @@ class FmmPlan:
                         self.tgt.tree.num_bodies,
                     )
                     res_t.index_add_(0, d["t_body_flat_slot"], rows)
-            return res_t
+            # GMRES keeps its results: none may alias a graph's output
+            return ph.own(res_t)
 
     def _p2m_slots(self, d, aux, q_t, p):
         """Slot-space P2M (ref EvalInteractionLazy.hpp:254-260 role):

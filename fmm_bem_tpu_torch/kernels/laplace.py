@@ -9,6 +9,8 @@ a real vector and truncation to a lower order is a prefix slice.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from fmm_bem_tpu_torch.kernels import harmonics as hm
@@ -109,6 +111,17 @@ def im_part(E):
     return E[..., 1::2]
 
 
+@functools.lru_cache(maxsize=None)
+def _term_weights(p, dtype, device):
+    return torch.as_tensor(hm.term_weights(p), dtype=dtype, device=device)
+
+
+def term_weights_like(p, like):
+    """``hm.term_weights(p)`` as a tensor of ``like``'s dtype and device,
+    uploaded once: an L2P captured into a CUDA graph cannot upload."""
+    return _term_weights(p, like.dtype, like.device)
+
+
 def _grad_rows(phi_fn, d):
     """Row-wise gradient of ``phi_fn(d) -> [B]`` with respect to
     ``d`` [B, 3], where row b of the result depends on row b of ``d``
@@ -188,7 +201,7 @@ class LaplaceKernel:
         chain-rule factor accounts for the normalised coordinates.
         """
         del tgt
-        w = torch.as_tensor(hm.term_weights(p), dtype=L.dtype, device=L.device)
+        w = term_weights_like(p, L)
         Lr, Li = re_part(L[:, 0]), im_part(L[:, 0])
 
         def phi_fn(d):
@@ -202,7 +215,7 @@ class LaplaceKernel:
         """Far-field evaluation from a multipole expansion (ref M2P
         :340-368): the physical potential is (1/sigma) * phi_hat(d/sigma)."""
         del tgt
-        w = torch.as_tensor(hm.term_weights(p), dtype=M.dtype, device=M.device)
+        w = term_weights_like(p, M)
         Mr, Mi = re_part(M[:, 0]), im_part(M[:, 0])
 
         def phi_fn(d):

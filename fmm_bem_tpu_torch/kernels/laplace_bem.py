@@ -27,14 +27,9 @@ from fmm_bem_tpu_torch.kernels.laplace import (
     eval_singular,
     im_part,
     re_part,
+    term_weights_like,
     to_interleaved_ri,
 )
-
-
-def _term_weights(p, like):
-    return torch.as_tensor(
-        hm.term_weights(p), dtype=like.dtype, device=like.device
-    )
 
 
 class LaplaceBEMKernel:
@@ -110,7 +105,7 @@ class LaplaceBEMKernel:
         NORMAL_DERIV targets (ref L2P :448-476)."""
         del inv_sigma
         re, im = eval_regular(d_norm, p)
-        w = _term_weights(p, L)
+        w = term_weights_like(p, L)
         r0 = torch.sum(w * (re_part(L[:, 0]) * re - im_part(L[:, 0]) * im), dim=-1)
         r1 = torch.sum(w * (re_part(L[:, 1]) * re - im_part(L[:, 1]) * im), dim=-1)
         bc = fields["bc"]
@@ -122,7 +117,7 @@ class LaplaceBEMKernel:
         harmonic recurrences never re-run inside solver loops)."""
         del inv_sigma
         re, im = eval_regular(d_norm, p)
-        w = _term_weights(p, re)
+        w = term_weights_like(p, re)
         base = to_interleaved_ri(w * re, -(w * im))  # [n, W]
         bc = fields["bc"][:, None]
         zero = torch.zeros_like(base)
@@ -133,7 +128,7 @@ class LaplaceBEMKernel:
     def m2p(self, fields, M, d_norm, inv_sigma, p):
         """Treecode/skew far-field evaluation (ref M2P :394-422)."""
         re, im = eval_singular(d_norm, p)
-        w = _term_weights(p, M)
+        w = term_weights_like(p, M)
         r0 = torch.sum(w * (re_part(M[:, 0]) * re - im_part(M[:, 0]) * im), dim=-1)
         r1 = torch.sum(w * (re_part(M[:, 1]) * re - im_part(M[:, 1]) * im), dim=-1)
         bc = fields["bc"]

@@ -30,6 +30,7 @@ from fmm_bem_tpu_torch.kernels.laplace import (
     eval_singular,
     im_part,
     re_part,
+    term_weights_like,
     to_interleaved_ri,
 )
 
@@ -53,7 +54,7 @@ def tornberg_velocity_sets(E, d_norm, inv_sigma, t_global, p, singular):
     t_global [B, 3] the targets' global coordinates (the formulation's
     explicit x_target dependence).  Returns [B, S, 3], unscaled.
     """
-    w = torch.as_tensor(hm.term_weights(p), dtype=E.dtype, device=E.device)
+    w = term_weights_like(p, E)
     harm = eval_singular if singular else eval_regular
     E2 = E.reshape(E.shape[0], -1, E.shape[-1])  # [B, S*4, W]
 

@@ -8,6 +8,7 @@ and the span's markers on the card's timeline, and skips without one.  This file
 import JAX, so that the ``card`` test runs where JAX is not installed
 (``README.md``, "Tracing")."""
 
+import functools
 import json
 
 import numpy as np
@@ -57,8 +58,10 @@ def two_spheres():
     return np.concatenate([unit_sphere(3), small])
 
 
+@functools.lru_cache(maxsize=None)
 def phase_case(case):
-    """(port plan, flipped) of one parametrised case."""
+    """(port plan, flipped) of one parametrised case (built once a
+    process; the tests here only apply it)."""
     if case == "skewed":
         return T.FmmPlan(LaplaceBEMKernel(K=3),
                          make_panels(two_spheres(), K=3),
@@ -130,6 +133,33 @@ def test_phase_spans_are_the_matvec(case):
         "apply", "apply.entry", "apply.exit", "matvec"}
     if case in ("skewed", "yukawa"):
         assert len(plan.m2p_src) > 0 and plan.m2l_fam is not None
+
+
+FAR_PHASES = ("p2m", "m2m", "m2l", "l2l", "l2p")
+
+
+@pytest.mark.parametrize("case", list(PHASES))
+def test_far_phases_run_eagerly_on_the_cpu(case):
+    """On the CPU a matvec runs each of its far-field phases eagerly:
+    ``matvec.eager`` counts once for each, and nothing is captured into
+    or replayed from a CUDA graph (``executor/graphs.py``), twice in a
+    row on the same operand."""
+    plan, flipped = phase_case(case)
+    n = plan.src.tree.num_bodies
+    cdim = getattr(plan.kernel, "charge_dim", 1)
+    q = np.random.default_rng(9).standard_normal(n * cdim)
+    q = q if cdim == 1 else q.reshape(n, cdim)
+    apply = plan.apply_flipped_bc if flipped else plan.apply
+    far = [ph for ph in PHASES[case] if ph in FAR_PHASES]
+    for _ in range(2):
+        traced(lambda: apply(q, p=5))
+        counts = {}
+        for (name, _), k in log.counts().items():
+            counts[name] = counts.get(name, 0) + k
+        assert counts.get("matvec.eager", 0) == len(far)
+        assert "matvec.graph" not in counts
+        assert "matvec.graph_captures" not in counts
+        log.clear_spans()
 
 
 @pytest.fixture(scope="module")
