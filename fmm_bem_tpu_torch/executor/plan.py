@@ -1369,18 +1369,24 @@ class FmmPlan:
     def _near_otf_core(self, dev, ql):
         """On-the-fly near product from leaf-tiled charges: the regular
         quadrature of every near pair recomputed on the device + the
-        cached correction-delta product.  Returns [nl_t, KT]."""
+        cached correction-delta product.  Returns [nl_t, KT].
+
+        Traced, the product opens the spans ``near.otf`` (the charges'
+        pad and the leaf-tile kernel) and ``near.corr`` (the correction
+        deltas)."""
         ot = dev["otf_tiles"]
         K = ot["sb_src"].shape[2]
-        qk = ql if ql.shape[1] == K else torch.nn.functional.pad(
-            ql, (0, K - ql.shape[1]))
-        res = otf_leaf_tiles(
-            ot["sb_src"], qk.contiguous(), ot["sb_tgt"], ot["row_ptr"],
-            ot["sslot"], self._otf_KQ,
-            kappa=float(getattr(self.kernel, "kappa", 0.0) or 0.0),
-            src_cnt=ot["src_cnt"], tgt_cnt=ot["tgt_cnt"],
-        )
-        return self._near_otf_corr(dev, ql, res[:, : self.tgt.leaf_pad])
+        with log.span("near.otf"):
+            qk = ql if ql.shape[1] == K else torch.nn.functional.pad(
+                ql, (0, K - ql.shape[1]))
+            res = otf_leaf_tiles(
+                ot["sb_src"], qk.contiguous(), ot["sb_tgt"], ot["row_ptr"],
+                ot["sslot"], self._otf_KQ,
+                kappa=float(getattr(self.kernel, "kappa", 0.0) or 0.0),
+                src_cnt=ot["src_cnt"], tgt_cnt=ot["tgt_cnt"],
+            )
+        with log.span("near.corr"):
+            return self._near_otf_corr(dev, ql, res[:, : self.tgt.leaf_pad])
 
     def _near_otf_corr(self, dev, ql, res):
         """Correction-delta product: leaf-tile charge gathers per

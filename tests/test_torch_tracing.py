@@ -101,6 +101,9 @@ PHASES = {
     "bem_flipped": ["p2m", "m2m", "m2l", "l2l", "l2p", "near"],
     "coo": ["p2m", "m2m", "m2l", "l2l", "l2p", "near"],
 }
+#: the spans under a phase, where a phase has any: the OTF near product's
+#: leaf-tile kernel and its correction deltas
+SUBPHASES = {"otf": {"near": ["near.otf", "near.corr"]}}
 
 
 @pytest.mark.parametrize("case", list(PHASES))
@@ -109,7 +112,8 @@ def test_phase_spans_are_the_matvec(case):
     ``matvec`` under it, whose leaf spans are the phases the plan's
     matvec runs, in order: M2P and family M2L, the OTF tiles, the Stokes
     two-stage store, the point P2P, the near-only operator, both BC
-    variants, the COO replay.  The traced result is bit-identical to the
+    variants, the COO replay.  Only the OTF plan's ``near`` has spans of
+    its own (``SUBPHASES``).  The traced result is bit-identical to the
     untraced one."""
     plan, flipped = phase_case(case)
     n = plan.src.tree.num_bodies
@@ -128,9 +132,14 @@ def test_phase_spans_are_the_matvec(case):
     assert len(mvs) == 1 and spans[mvs[0]][3] == roots[0]
     leaves = [s for s in children(spans, mvs[0])]
     assert [s[0] for s in leaves] == PHASES[case]
-    assert all(not children(spans, spans.index(s)) for s in leaves)
+    sub = SUBPHASES.get(case, {})
+    for s in leaves:
+        kids = children(spans, spans.index(s))
+        assert [k[0] for k in kids] == sub.get(s[0], [])
+        assert all(not children(spans, spans.index(k)) for k in kids)
     assert {s[0] for s in spans} - PHASE_NAMES <= {
-        "apply", "apply.entry", "apply.exit", "matvec"}
+        "apply", "apply.entry", "apply.exit", "matvec",
+        *(k for v in sub.values() for k in v)}
     if case in ("skewed", "yukawa"):
         assert len(plan.m2p_src) > 0 and plan.m2l_fam is not None
 
@@ -240,6 +249,67 @@ def test_solve_spans_and_counters(case, bem_plan, second_kind_plan):
     assert counts[("host_syncs", 0)] == its + n_true + 2
     assert counts[("gmres.iterations", 0)] == its
     assert {k[1] for k in counts} == {0}
+
+
+@pytest.fixture(scope="module")
+def otf_plan():
+    return T.FmmPlan(LaplaceBEMKernel(K=3), make_panels(unit_sphere(3), K=3),
+                     T.FMMConfig(ncrit=16, dtype="float64", max_p=10,
+                                 near_mode="otf"),
+                     device="cpu")
+
+
+OTF_NAMES = ("near.otf", "near.corr")
+
+
+def test_otf_spans_nest_in_near_once_a_matvec(otf_plan):
+    """A relaxed solve on an OTF plan, its right-hand side traced too:
+    under each ``near`` span one ``near.otf`` (the leaf-tile kernel)
+    then one ``near.corr`` (the correction deltas), each without
+    children; one of each a matvec, so one ``near.otf`` a near product,
+    on the operation of the span it ran in."""
+    n = otf_plan.src.tree.num_bodies
+    cfg = T.SolverConfig(**RELAXED)
+
+    def run():
+        b = otf_plan.apply_flipped_bc(np.ones(n), p=10)[:, 0].numpy()
+        return solve_plan(otf_plan, b, cfg)
+
+    (_, info, mode), _ = traced(run)
+    assert mode == "device-slots" and info.converged
+    spans = log.spans()
+    idx = {nm: [i for i, s in enumerate(spans) if s[0] == nm]
+           for nm in ("apply", "solve", "matvec", "near", *OTF_NAMES)}
+    assert len(idx["apply"]) == 1 and len(idx["solve"]) == 1
+    assert len(idx["near"]) == len(idx["matvec"]) >= info.iterations + 1
+    for i in idx["near"]:
+        kids = children(spans, i)
+        assert [k[0] for k in kids] == list(OTF_NAMES)
+        assert all(not children(spans, spans.index(k)) for k in kids)
+    for nm in OTF_NAMES:
+        assert [spans[i][3] for i in idx[nm]] == idx["near"]
+    ops = {spans[i][4]: nm for nm in ("apply", "solve") for i in idx[nm]}
+    per_op = {}
+    for i in idx["near.otf"]:
+        per_op[ops[spans[i][4]]] = per_op.get(ops[spans[i][4]], 0) + 1
+    assert per_op == {"apply": 1, "solve": len(idx["matvec"]) - 1}
+    assert not any(nm == "near.otf" for nm, _ in log.counts())
+
+
+@pytest.mark.parametrize("case", [c for c in PHASES if c != "otf"])
+def test_no_otf_spans_or_counter_off_the_otf_route(case):
+    """Every plan without the on-the-fly near field (the cached stores,
+    the near-only operator, the COO replay, the points) records no OTF
+    span, and no counter of that name."""
+    plan, flipped = phase_case(case)
+    n = plan.src.tree.num_bodies
+    cdim = getattr(plan.kernel, "charge_dim", 1)
+    q = np.ones(n * cdim) if cdim == 1 else np.ones((n, cdim))
+    apply = plan.apply_flipped_bc if flipped else plan.apply
+    traced(lambda: apply(q, p=5))
+    names = {s[0] for s in log.spans()}
+    assert "matvec" in names and not names & set(OTF_NAMES)
+    assert not any(nm == "near.otf" for nm, _ in log.counts())
 
 
 def test_operand_builds_on_a_shared_context(bem_plan):
