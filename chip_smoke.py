@@ -36,7 +36,8 @@ block edges), and drives the port's paths at full size:
   program on the cached path's sphere of 131,072 panels
   (``YukawaBEMKernel(K=3, kappa=0.125)``, ncrit=64, leaf_pad=64, f32,
   max_p=8): ``m2p_cart_tile`` on its level-skewed pairs at p = 3, 5, 8,
-  timed, the relaxed solve with tiers (3, 5, 8), the mean dphi/dn
+  timed, ``l2p_cart_tile`` on its 4,184 target leaves of 64 slots at
+  p = 3, 5, 8, timed, the relaxed solve with tiers (3, 5, 8), the mean dphi/dn
   against the interior analytic value, chained matvecs at p=8 and p=5,
   the profiles, ``near_panel`` on its store, the same solve in f64; then
   at 8,192 panels one f32 matvec against the f64 one at p=8 and p=5, and
@@ -128,6 +129,7 @@ from fmm_bem_tpu_torch.kernels.stokes_bem import StokesBEMKernel
 from fmm_bem_tpu_torch.kernels.unit import UnitKernel
 from fmm_bem_tpu_torch.kernels.yukawa_bem import YukawaBEMKernel
 from fmm_bem_tpu_torch.ops import _build
+from fmm_bem_tpu_torch.ops import l2p_cart_tile as l2pc
 from fmm_bem_tpu_torch.ops import m2p_cart_tile as m2pc
 from fmm_bem_tpu_torch.ops import m2p_tile as m2p
 from fmm_bem_tpu_torch.ops import near_panel as npl
@@ -194,12 +196,23 @@ def m2p_cart_flops(p):
 M2P_CART_SFU = 2
 
 
+def l2p_cart_flops(p):
+    """Arithmetic of one Yukawa L2P slot at order p, as
+    ``csrc/l2p_cart_tile.cu`` walks it: per term the monomial, its
+    product with the coefficient and the sum (3) and the next z^k / k!
+    (2); per (i, j) the product x^i y^j (1) and the next y^j / j! (2);
+    per i the next x^i / i! (2)."""
+    return 5 * ct.num_terms(p) + 3 * (p + 1) * (p + 2) // 2 + 2 * (p + 1)
+
+
 #: the point Laplace kernel's self-exclusion threshold on r^2
 P2P_EPS2 = LaplaceKernel.eps2
 #: the package's hand-written kernels; their wrappers carry the launch
 #: counts (m2p_tile and m2p_cart_tile, which port no TPU kernel, run
-#: beside the near field's kernel: ``m2p_per_matvec``)
+#: beside the near field's kernel: ``m2p_per_matvec``; l2p_cart_tile,
+#: which ports none either, runs in a graphed phase: ``GRAPHED``)
 WRAPPERS = {
+    "l2p_cart_tile": l2pc.l2p_cart_tiles,
     "m2p_tile": m2p.m2p_tiles,
     "m2p_cart_tile": m2pc.m2p_cart_tiles,
     "near_panel": npl.panel_matvec_fused,
@@ -254,7 +267,8 @@ STOKES_REC8_HOST_BUDGET_S = 120.0
 #: default_p_tiers(8)), on the cached path's sphere with leaf_pad=64
 YUKAWA_KAPPA = 0.125
 YUKAWA_P = 8
-#: the orders m2p_cart_tile is held to its plain version at and timed
+#: the orders m2p_cart_tile and l2p_cart_tile are held to their plain
+#: versions at and timed
 YUKAWA_M2P_ORDERS = (3, 5, YUKAWA_P)
 #: the mean dphi/dn against the interior value -(kappa coth kappa - 1):
 #: the JAX package's own bar at 512 panels (tests/test_yukawa.py)
@@ -375,13 +389,26 @@ def nvidia_smi_line(fields="name,power.limit"):
     return out.stdout.strip().splitlines()[0]
 
 
+#: the kernels that run inside a far-field phase's CUDA graph
+#: (``executor/graphs.py``): their wrapper counts an operand's eager and
+#: captured call, not a replay, so their launches are not per matvec and
+#: ``launch_counts`` leaves them out (``l2p_launches`` holds them)
+GRAPHED = ("l2p_cart_tile",)
+#: the kernels ``launch_counts`` holds to the matvecs
+COUNTED = tuple(k for k in WRAPPERS if k not in GRAPHED)
+
+
 def reset_launch_counts():
     for fn in WRAPPERS.values():
         fn.launches = 0
 
 
 def launch_counts():
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    return {name: WRAPPERS[name].launches for name in COUNTED}
+
+
+def l2p_launches():
+    return WRAPPERS["l2p_cart_tile"].launches
 
 
 #: the M2P kernels, which a kernel's ``m2p_tile`` marker names
@@ -413,7 +440,7 @@ def m2p_expected(plans, matvecs):
 def matvec_counts(plan, matvecs=1, **launched):
     """The launch counts of ``matvecs`` matvecs of ``plan`` that launch
     ``launched`` besides its M2P kernel's own, and no other kernel."""
-    return {**dict.fromkeys(WRAPPERS, 0),
+    return {**dict.fromkeys(COUNTED, 0),
             **m2p_expected([plan], [matvecs]), **launched}
 
 
@@ -794,6 +821,77 @@ def check_m2p_kernel(name, plan, tdt, tol, label, orders, time_it=False):
                     lambda: fn(*args, out, p, *extra))
                 rec["plain_ms"] = gpu_ms(
                     lambda: plain(*args, out, p, *extra), 2, 1, batches=1)
+                rec["library_ms"] = None  # no single PyTorch call does this
+            recs.append(rec)
+    return recs
+
+
+def check_l2p_cart_tile(plan, tdt, tol, label, orders, time_it=False):
+    """The l2p_cart_tile kernel (Yukawa BEM) against its plain version on
+    the card, on the plan's target leaves, slot offsets and slot mask in
+    ``tdt`` (the plan's own dtype or f64), seeded local expansion rows
+    and both BC variants' slot flags, at each order of ``orders``:
+    relative to the largest value (f32 differs by the running products
+    and the order of the sums), padded slots exactly 0, a second launch
+    the same bits.  With ``time_it`` each order's kernel is timed beside
+    its bound and the plain version's time (BC variant 0).  Returns the
+    records."""
+    name, fn, plain = ("l2p_cart_tile", l2pc.l2p_cart_tiles,
+                       l2pc.l2p_cart_tiles_reference)
+    recs = []
+    for p in orders:
+        d = plan.device_data(p)
+        leaves, mask = d["t_leaf_ids"], d["t_slot_mask"]
+        gen = torch.Generator(device=DEV).manual_seed(17 + p)
+        L = torch.randn((plan.tgt.tree.num_boxes, 2 * ct.num_terms(p)),
+                        generator=gen, dtype=tdt, device=DEV)
+        for bc_name, fh in (("bc0", None), ("bc1", plan._flipped_fields())):
+            aux = plan.variant_aux_slots(p, src_host=fh, tgt_host=fh)
+            args = (L, leaves, aux["t_dn_t"].to(tdt),
+                    aux["t_fields_t"]["bc"].to(tdt), mask)
+            before = fn.launches
+            got = fn(*args, p)
+            again = fn(*args, p)
+            launched = fn.launches - before
+            torch.cuda.synchronize()
+            want = plain(*args, p)
+            rel = float((got - want).abs().max() / want.abs().max())
+            zeros_exact = bool((got[~mask] == 0).all())
+            bit_equal = torch.equal(got, again)
+            flags = args[3][mask]
+            rec = {
+                "kernel": name, "case": f"{label}_p{p}_{bc_name}",
+                "dtype": str(tdt).replace("torch.", ""), "p": p,
+                "target_leaves": int(leaves.shape[0]),
+                "slots": int(mask.shape[0]), "real_slots": int(mask.sum()),
+                "second_flag_slots": int((flags != 0).sum()),
+                "max_abs_err": float((got - want).abs().max()),
+                "rel_err": rel, "tol": tol,
+                "all_finite": bool(torch.isfinite(got).all()),
+                "padded_exact_zero": zeros_exact,
+                "repeat_bit_equal": bit_equal, "launches": launched,
+            }
+            if not (rel <= tol and zeros_exact and bit_equal
+                    and rec["all_finite"] and launched == 2):
+                emit(rec)
+                fail(f"{name}[{rec['case']}] disagrees with its plain "
+                     f"version: rel {rel:.3e} > {tol:.1e}, exact zeros "
+                     f"{zeros_exact}, repeat bit-equal {bit_equal}, "
+                     f"launches {launched}")
+            if time_it and bc_name == "bc0":
+                rec["flops_per_slot"] = l2p_cart_flops(p)
+                # each leaf's L row once, the slots' offsets, flags and
+                # mask, the leaf ids, and the result written
+                rows = int(torch.unique(leaves).numel())
+                nbytes = (rows * L.shape[1] * L.element_size()
+                          + nbytes_of(*args[1:], got))
+                arithmetic_bound(rec, nbytes,
+                                 rec["real_slots"] * l2p_cart_flops(p), 0,
+                                 tdt)
+                rec["ms"] = gpu_ms(lambda: fn(*args, p), 20)
+                rec["graph_ms"] = graph_ms(lambda: fn(*args, p))
+                rec["plain_ms"] = gpu_ms(lambda: plain(*args, p), 2, 1,
+                                         batches=1)
                 rec["library_ms"] = None  # no single PyTorch call does this
             recs.append(rec)
     return recs
@@ -1632,8 +1730,11 @@ def idle_share(ops, ms):
 def phase_profile(plan, charges, p=5, phase="profile"):
     """The matvec's phases timed by CUDA events, then one matvec under
     torch.profiler: top device operations, launches, busy time; and the
-    device launches of the L2P and M2P phases alone."""
+    device launches of the L2P and M2P phases alone, run eagerly; an L2P
+    kernel, which the plan's kernel's ``l2p_tile`` marker names, is held
+    to one launch of its wrapper in one eager L2P phase."""
     mv, op4p, to_s, _, _ = plan._slot_ops(None)
+    route = plan._l2p_route()
     operand = op4p(p)
     d, aux, sf, tf = operand
     x = to_s(charges)
@@ -1663,7 +1764,7 @@ def phase_profile(plan, charges, p=5, phase="profile"):
         "m2m": t(lambda: plan._phase_m2m(d, M0.clone())),
         "m2l": t(lambda: plan._phase_m2l(d, M, p)),
         "l2l": t(lambda: plan._phase_l2l(d, L0.clone())),
-        "l2p": t(lambda: plan._l2p_slots(d, aux, L, p)),
+        "l2p": t(lambda: plan._l2p_slots(d, aux, L, p, route)),
         "m2p": t(lambda: plan._m2p_pass(d, aux, tf, M, p, nl, K, res0))
         if len(plan.m2p_src) else 0.0,
         "near": t(lambda: plan._near_pass_slots(aux, q_t))
@@ -1679,7 +1780,10 @@ def phase_profile(plan, charges, p=5, phase="profile"):
     by_name, window_us = device_ops(lambda: mv(operand, x, p))
 
     phase_launches = {"l2p": device_launches(
-        lambda: plan._l2p_slots(d, aux, L, p))[0]}
+        lambda: plan._l2p_slots(d, aux, L, p, route))[0]}
+    before = l2p_launches()
+    plan._l2p_slots(d, aux, L, p, route)
+    l2p_kernel_launches = l2p_launches() - before
     if len(plan.m2p_src):
         phase_launches["m2p"] = device_launches(
             lambda: plan._m2p_pass(d, aux, tf, M, p, nl, K, res0))[0]
@@ -1695,13 +1799,17 @@ def phase_profile(plan, charges, p=5, phase="profile"):
             {"name": k[:120], "us": v[0], "calls": v[1]} for k, v in top
         ],
         "phase_ms": phase_ms,
-        "phase_launches": phase_launches,
+        "phase_launches": phase_launches, "l2p_route": route,
+        "l2p_kernel_launches": l2p_kernel_launches,
     }
     rec["m2l_family_classes"] = (
         0 if plan.m2l_fam is None else len(plan.m2l_fam.cls_sp)
     )
     rec["m2p_pairs"] = int(len(plan.m2p_src))
     emit(rec)
+    if l2p_kernel_launches != (1 if route else 0):
+        fail(f"{phase}: one L2P phase (route {route}) launched "
+             f"l2p_cart_tile {l2p_kernel_launches} times")
     return rec
 
 
@@ -2012,7 +2120,7 @@ def path_points(npoints, nbase):
     if err_pot > 3 * base_err[0] or err_force > 3 * base_err[1]:
         fail(f"point errors {err_pot:.3e} / {err_force:.3e} above three "
              f"times the truncation error {base_err}")
-    if counts != {**dict.fromkeys(WRAPPERS, 0), "p2p_tile": 1}:
+    if counts != {**dict.fromkeys(COUNTED, 0), "p2p_tile": 1}:
         fail(f"one apply launched {counts}: the point path did not go "
              "through p2p_tile once, and no other kernel")
     phase_profile(plan, q, phase="points_profile")
@@ -2082,6 +2190,7 @@ def drive_slot_path(plan, kernel, orders, x0, chain, solves):
         "matvecs": calls["matvecs"], "kernel": kernel,
         "kernel_launches": counts[kernel], "launch_counts": counts,
         "m2p_launches_expected": m2p_expected([plan], [calls["matvecs"]]),
+        "l2p_route": plan._l2p_route(), "l2p_launches": l2p_launches(),
         "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
     }
 
@@ -2089,7 +2198,11 @@ def drive_slot_path(plan, kernel, orders, x0, chain, solves):
 def hold_launches(rec, path):
     """Fail unless the path's kernel launched once per matvec the plans
     ran, each M2P kernel as often as their matvecs run it
-    (``m2p_launches_expected``), and no other kernel launched."""
+    (``m2p_launches_expected``), and no other kernel launched; where the
+    record has the L2P kernel's launches (``drive_slot_path``), that
+    kernel launched at least once and at most once a matvec on a plan
+    whose kernel's marker names it (graph replays launch from no
+    Python), else never."""
     kernel, counts = rec["kernel"], rec["launch_counts"]
     others = sum(v for k, v in counts.items()
                  if k not in (kernel, *M2P_KERNELS))
@@ -2104,6 +2217,12 @@ def hold_launches(rec, path):
              f"counts: {counts}, M2P kernels expected "
              f"{rec['m2p_launches_expected']}): the {path} path did not go "
              "through its kernels, and no other, once per matvec")
+    if "l2p_launches" in rec:
+        n = rec["l2p_launches"]
+        if not (1 <= n <= rec["matvecs"] if rec["l2p_route"] else n == 0):
+            fail(f"the {path} path launched l2p_cart_tile {n} times in "
+                 f"{rec['matvecs']} matvecs (L2P route "
+                 f"{rec['l2p_route']})")
 
 
 def stokes_solve(plan, fields, n, p_fixed=None):
@@ -2391,7 +2510,8 @@ def phase_yukawa_f64(recursions):
 
 def path_yukawa(recursions, small_recursions):
     """The Yukawa BEM path: plan build (per-level translation classes),
-    ``near_panel`` on its store of screened entries, the solve and the
+    ``near_panel`` on its store of screened entries, ``m2p_cart_tile`` and
+    ``l2p_cart_tile`` against their plain versions, the solve and the
     chained matvecs, the profiles at p=8 and p=5, the solve in f64; then
     f32 against f64 on a smaller sphere.  Returns the near_panel checks
     on this path's store."""
@@ -2424,11 +2544,15 @@ def path_yukawa(recursions, small_recursions):
                                        time_it=True)
         m2p_recs += check_m2p_cart_tile(plan, torch.float64, 1e-12,
                                         "yukawa_path", YUKAWA_M2P_ORDERS)
+    l2p_recs = check_l2p_cart_tile(plan, torch.float32, 1e-5, "yukawa_path",
+                                   YUKAWA_M2P_ORDERS, time_it=True)
+    l2p_recs += check_l2p_cart_tile(plan, torch.float64, 1e-12,
+                                    "yukawa_path", YUKAWA_M2P_ORDERS)
     torch.cuda.empty_cache()
     solve, solve_launches = phase_yukawa_path(plan, n)
     host = phase_yukawa_host(plan, n)
     ones = np.ones(n, np.float32)
-    phase_profile(plan, ones, p=YUKAWA_P, phase="yukawa_profile")
+    profile = phase_profile(plan, ones, p=YUKAWA_P, phase="yukawa_profile")
     phase_profile(plan, ones, p=5, phase="yukawa_profile_p5")
     phase_override(plan, "yukawa", "near_panel", YUKAWA_P)
     del plan, panels
@@ -2440,7 +2564,13 @@ def path_yukawa(recursions, small_recursions):
             "m2p_cart_tile", None,
             next(r for r in m2p_recs if r["p"] == YUKAWA_P and "ms" in r),
             solve_launches["m2p_cart_tile"]), path="yukawa")]
-    return [near, *m2p_recs], entries
+    # one launch an L2P: the profile's eager phase (a solve replays it
+    # from the phase's graph, which no wrapper count sees)
+    entries.append(dict(kernel_entry(
+        "l2p_cart_tile", None,
+        next(r for r in l2p_recs if r["p"] == YUKAWA_P and "ms" in r),
+        profile["l2p_kernel_launches"]), path="yukawa"))
+    return [near, *m2p_recs, *l2p_recs], entries
 
 
 def path_point_kernels(scale):
@@ -2511,7 +2641,7 @@ def path_point_kernels(scale):
         if err_pot > 3 * base_err[0] or err_force > 3 * base_err[1]:
             fail(f"{name}: errors {err_pot:.3e} / {err_force:.3e} above "
                  f"three times the truncation error {base_err}")
-        want = dict.fromkeys(WRAPPERS, 0)
+        want = dict.fromkeys(COUNTED, 0)
         if evaluator == Evaluator.TREECODE:
             want["p2p_tile"] = 1
             if rec["m2l_pairs"] or not rec["m2p_pairs"]:
@@ -3168,7 +3298,7 @@ STRESSLET_LIMIT = 5e-4
 
 
 def no_kernel_counts():
-    return dict.fromkeys(WRAPPERS, 0)
+    return dict.fromkeys(COUNTED, 0)
 
 
 def phase_override(plan, label, kernel, p, seed=21):
@@ -3853,7 +3983,7 @@ def counted_let(lp, fn):
 def hold_let_launches(counts, matvecs, kernel, ranks, what):
     """Fail unless ``kernel`` launched once per rank per matvec and no
     other kernel launched (``kernel`` None: no kernel at all)."""
-    want = {**dict.fromkeys(WRAPPERS, 0),
+    want = {**dict.fromkeys(COUNTED, 0),
             **({kernel: ranks * matvecs} if kernel else {})}
     if matvecs == 0 or counts != want:
         fail(f"{what}: {matvecs} LET matvecs on {ranks} ranks launched "

@@ -14,6 +14,8 @@ ops on the plan's device:
           class) + residual pair tiles, reduced by bucketed gather-sums
     L2L   octant-class matmuls per level, top-down
     L2P   slot-ordered linear table contracted with the leaf locals
+          (for the Yukawa BEM kernel, which has no table, one launch over
+          every slot, ops/l2p_cart_tile.py)
     M2P   treecode far field, and fallback for level-skewed pairs (for
           the Laplace and Yukawa BEM kernels one launch over every pair,
           ops/m2p_tile.py and ops/m2p_cart_tile.py)
@@ -75,6 +77,7 @@ from fmm_bem_tpu_torch.config import Evaluator, FMMConfig
 from fmm_bem_tpu_torch.executor.graphs import EAGER, GraphPool, phases_for
 from fmm_bem_tpu_torch.ops import _build
 from fmm_bem_tpu_torch.ops.bucket_sum import bucket_sum_apply, build_bucket_sum
+from fmm_bem_tpu_torch.ops.l2p_cart_tile import l2p_cart_tiles
 from fmm_bem_tpu_torch.ops.m2p_cart_tile import m2p_cart_tiles
 from fmm_bem_tpu_torch.ops.m2p_tile import m2p_tiles
 from fmm_bem_tpu_torch.ops.m2p_tile import pair_tables as m2p_pair_tables
@@ -382,9 +385,13 @@ def cuda_kernels(kernel, config, dual):
     exist.  A plan that turns out to have no pairs of a kind never
     launches that kernel; its build was then started for nothing."""
     names = []
+    far = not (config.local_evaluation or config.block_diagonal)
     m2p = getattr(kernel, "m2p_tile", None)
-    if m2p and not (config.local_evaluation or config.block_diagonal):
+    if m2p and far:
         names.append(m2p)
+    l2p = getattr(kernel, "l2p_tile", None)
+    if l2p and far and config.evaluator == Evaluator.FMM:
+        names.append(l2p)
     if not getattr(kernel, "near_sparse", False):
         if getattr(kernel, "p2p_tile", False) and not dual:
             names.append("p2p_tile")
@@ -1816,8 +1823,14 @@ class FmmPlan:
                 with log.span("l2l"):
                     L = ph.run("l2l", lambda l: self._phase_l2l(d, l), L)
                 with log.span("l2p"):
+                    # counted here, not in the phase: a graph replay
+                    # does not run the phase's Python
+                    route = self._l2p_route()
+                    if route:
+                        log.count("l2p.kernel")
                     res_t = ph.run(
-                        "l2p", lambda l: self._l2p_slots(d, aux, l, p), L)
+                        "l2p",
+                        lambda l: self._l2p_slots(d, aux, l, p, route), L)
             else:
                 # no local expansions: the treecode's far field is M2P
                 res_t = torch.zeros(
@@ -1893,12 +1906,29 @@ class FmmPlan:
             out_leaf = panel_matvec(aux["panels"], aux["near_meta"], ql)
         return out_leaf.reshape(nl_t * K_t, self.kernel.result_dim)
 
-    def _l2p_slots(self, d, aux, L, p):
+    def _l2p_route(self):
+        """The L2P kernel the kernel's ``l2p_tile`` marker names,
+        ``"l2p_cart_tile"`` (Yukawa BEM), or None; read once a matvec
+        for both the launch and the ``l2p.kernel`` count.  Raises on a
+        name no L2P kernel has."""
+        route = getattr(self.kernel, "l2p_tile", None)
+        if route not in (None, "l2p_cart_tile"):
+            raise ValueError(f"no L2P kernel is named {route!r}")
+        return route
+
+    def _l2p_slots(self, d, aux, L, p, route):
         """L2P in slot layout: each leaf's local expansion broadcasts
-        over its tile through the w-major table [rdim, cW, nl, K], or
-        through the kernel's own ``l2p`` where it has no table."""
+        over its tile through the L2P kernel ``route`` names
+        (``_l2p_route``; ``"l2p_cart_tile"``:
+        ``ops/l2p_cart_tile.py::l2p_cart_tiles``, which reads ``L`` at
+        the leaf ids itself), else through the w-major table [rdim, cW,
+        nl, K], else through the kernel's own ``l2p``."""
         kern = self.kernel
         nl_t, K_t = len(self.tgt.leaf_ids), self.tgt.leaf_pad
+        if route == "l2p_cart_tile":
+            return l2p_cart_tiles(
+                L, d["t_leaf_ids"], aux["t_dn_t"], aux["t_fields_t"]["bc"],
+                d["t_slot_mask"], p)
         Ll = L[d["t_leaf_ids"]]  # [nl, cW]
         if "l2p_tab_t" in aux:
             out = torch.einsum("rwnk,nw->rnk", aux["l2p_tab_t"], Ll)

@@ -38,6 +38,9 @@ class YukawaBEMKernel(YukawaKernel):
     #: the M2P evaluation runs as the leaf-tile kernel it names,
     #: ops/m2p_cart_tile.py (this class's ``m2p`` math)
     m2p_tile = "m2p_cart_tile"
+    #: the L2P evaluation runs as the leaf-tile kernel it names,
+    #: ops/l2p_cart_tile.py (this class's ``l2p`` math)
+    l2p_tile = "l2p_cart_tile"
 
     def __init__(self, K=3, fine_K=17, kappa=0.125):
         super().__init__(kappa=kappa)

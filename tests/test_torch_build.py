@@ -37,9 +37,10 @@ KERNELS = {
     ("laplace_bem", {"local_evaluation": True}, False, ["near_panel"]),
     ("laplace_bem", {"block_diagonal": True}, False, ["near_panel"]),
     ("laplace_bem", {}, True, ["m2p_tile", "near_panel"]),
-    ("yukawa_bem", {}, False, ["m2p_cart_tile", "near_panel"]),
+    ("yukawa_bem", {}, False, ["m2p_cart_tile", "l2p_cart_tile",
+                               "near_panel"]),
     ("yukawa_bem", {"near_mode": "otf"}, False,
-     ["m2p_cart_tile", "near_panel"]),
+     ["m2p_cart_tile", "l2p_cart_tile", "near_panel"]),
     ("stokes_bem", {}, False, ["panel_contract"]),
     ("laplace_points", {}, False, ["p2p_tile"]),
     ("laplace_points", {}, True, []),

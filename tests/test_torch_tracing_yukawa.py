@@ -7,7 +7,9 @@
   every phase span records once a matvec, and M2P takes the kernel route
   (``ops/m2p_cart_tile.py``) once a matvec, or the eager route once a
   matvec where the kernel's marker is switched off (an ``apply``'s
-  phases: ``test_torch_tracing.py``).
+  phases: ``test_torch_tracing.py``), and L2P takes its kernel route
+  (``ops/l2p_cart_tile.py``, counted ``l2p.kernel``) once a matvec,
+  which a Laplace BEM solve (the L2P table) never counts.
 
 Spans and counters record only under a ``torch.profiler`` session
 (``fmm_bem_tpu_torch/utils/metrics.py``)."""
@@ -22,6 +24,7 @@ torch.set_num_threads(1)
 import fmm_bem_tpu_torch as T
 from fmm_bem_tpu_torch.bem.panels import make_panels
 from fmm_bem_tpu_torch.bem.triangulation import unit_sphere
+from fmm_bem_tpu_torch.kernels.laplace_bem import LaplaceBEMKernel
 from fmm_bem_tpu_torch.kernels.yukawa_bem import YukawaBEMKernel
 from fmm_bem_tpu_torch.solver.api import solve_plan
 from fmm_bem_tpu_torch.solver.gmres import gmres_device
@@ -130,3 +133,29 @@ def solve_counts(plan, route, other):
     assert STALL in counts
     for phase in ("p2m", "m2m", "m2l", "l2l", "l2p", "m2p", "near"):
         assert names.count(phase) == matvecs, phase
+
+
+@pytest.fixture(scope="module")
+def laplace_bem_plan():
+    """A Laplace BEM plan on a small sphere: its L2P is the table."""
+    return T.FmmPlan(LaplaceBEMKernel(K=3), make_panels(unit_sphere(3), K=3),
+                     T.FMMConfig(ncrit=8, dtype="float64", max_p=4),
+                     device="cpu")
+
+
+@pytest.mark.parametrize("kernel", ["yukawa_bem", "laplace_bem"])
+def test_solve_counts_l2p_kernel_per_matvec(kernel, yukawa_skewed,
+                                            laplace_bem_plan):
+    """A relaxed solve: one ``l2p.kernel`` a ``matvec`` span on the
+    Yukawa BEM plan (its ``l2p_tile`` marker), none on the Laplace BEM
+    plan."""
+    plan = yukawa_skewed if kernel == "yukawa_bem" else laplace_bem_plan
+    n = plan.src.tree.num_bodies
+    b = plan.apply_flipped_bc(np.ones(n), p=4)[:, 0].numpy()
+    cfg = T.SolverConfig(residual=1e-5, max_iters=8, restart=8, max_p=4,
+                         p_min=1, p_tiers=(3, 4))
+    _, info, _ = traced(lambda: solve_plan(plan, b, cfg))
+    matvecs = [s[0] for s in log.spans()].count("matvec")
+    assert matvecs >= info.iterations > 0
+    want = matvecs if kernel == "yukawa_bem" else 0
+    assert totals().get("l2p.kernel", 0) == want
